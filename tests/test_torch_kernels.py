@@ -1,0 +1,84 @@
+"""The two kernel wrappers of the PyTorch port (``ops/fused.py`` K1,
+``ops/fused_diffusion.py`` K2).
+
+On CPU tensors a wrapper runs its plain torch version; those are held
+bitwise against the JAX package's XLA tier (the JAX suite already pins
+its Pallas kernels to that tier).  The CUDA kernels themselves are held
+against the plain versions on the card in ``test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stereomatching_tpu.config import StereoParams
+from stereomatching_tpu.ops.argmax import match_and_score as j_match_and_score
+from stereomatching_tpu.ops.diffusion import fill_web_holes as j_fill_web_holes
+from stereomatching_tpu.ops.edges import find_edges as j_find_edges
+from stereomatching_tpu_torch.ops import fused, fused_diffusion
+from tests.test_torch_ops import MODES, brightness_batch
+
+
+def jax_match_score_edges(left, right, params):
+    """The XLA tier's phases 1-2 for one [H, W] pair."""
+    el = j_find_edges(jnp.asarray(left), params.threshold, params.mode, "exact")
+    er = j_find_edges(jnp.asarray(right), params.threshold, params.mode, "exact")
+    best, winner = j_match_and_score(el, er, params)
+    return [np.asarray(x) for x in (best, winner, el, er)]
+
+
+@pytest.mark.parametrize("shifts_sw", [(8, 7), (16, 21)])
+@pytest.mark.parametrize("mode", MODES)
+def test_match_score_edges_cpu_matches_jax(mode, shifts_sw):
+    d, sw = shifts_sw
+    params = StereoParams(num_shifts=d, square_width=sw, mode=mode, edge_rule="exact")
+    left, right = brightness_batch()
+    before = fused.match_score_edges.launches
+    got = fused.match_score_edges(torch.from_numpy(left), torch.from_numpy(right), params)
+    assert fused.match_score_edges.launches == before  # CPU: no kernel launch
+    for i in range(left.shape[0]):
+        for port, ref in zip(got, jax_match_score_edges(left[i], right[i], params)):
+            assert port.dtype == torch.int32
+            assert np.array_equal(port[i].numpy(), ref)
+    # 2-D input gives 2-D planes.
+    single = fused.match_score_edges(torch.from_numpy(left[0]), torch.from_numpy(right[0]), params)
+    for a, b in zip(single, got):
+        assert torch.equal(a, b[0])
+
+
+def test_match_score_edges_rejects_unported_options():
+    left, right = (torch.from_numpy(x) for x in brightness_batch(1))
+    params = StereoParams(num_shifts=8, square_width=7, edge_rule="exact")
+    with pytest.raises(NotImplementedError):
+        fused.match_score_edges(left, right, params, subpixel=True)
+    with pytest.raises(ValueError):
+        fused.match_score_edges(left, right, params.replace(edge_rule="reference"))
+
+
+@pytest.mark.parametrize("times", [0, 1, 2, 8])
+def test_fill_web_holes_range_cpu_matches_jax(times):
+    rng = np.random.default_rng(5)
+    web = rng.integers(1, 17, (3, 48, 64)).astype(np.int32)
+    web[rng.random(web.shape) < 0.3] = 0
+    before = fused_diffusion.fill_web_holes_range.launches
+    out, mn, mx = fused_diffusion.fill_web_holes_range(torch.from_numpy(web), times)
+    assert fused_diffusion.fill_web_holes_range.launches == before
+    assert out.dtype == mn.dtype == mx.dtype == torch.int32
+    assert mn.shape == mx.shape == (3,)
+    for i in range(3):
+        ref = np.asarray(j_fill_web_holes(jnp.asarray(web[i]), times))
+        assert np.array_equal(out[i].numpy(), ref)
+        assert mn[i].item() == ref.min() and mx[i].item() == ref.max()
+    o2, mn2, mx2 = fused_diffusion.fill_web_holes_range(torch.from_numpy(web[1]), times)
+    assert mn2.ndim == mx2.ndim == 0
+    assert torch.equal(o2, out[1]) and mn2 == mn[1] and mx2 == mx[1]
+
+
+def test_wrappers_refuse_other_devices():
+    params = StereoParams(num_shifts=8, square_width=7, edge_rule="exact")
+    meta = torch.empty((1, 8, 8), device="meta")
+    with pytest.raises(ValueError):
+        fused.match_score_edges(meta, meta, params)
+    with pytest.raises(ValueError):
+        fused_diffusion.fill_web_holes_range(meta.to(torch.int32), 4)

@@ -1,0 +1,193 @@
+"""The PyTorch port's classic pipeline as a whole: ``classic_forward``,
+``classic_forward_batched``, ``ClassicPipeline`` and ``Matcher`` held
+bitwise against the JAX package's XLA tier and the numpy oracle, the
+checkpoint resume across the two packages, and the port's boundaries
+(no jax import, no silent CPU fallback)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stereomatching_tpu.config import BoundaryMode, StereoParams
+from stereomatching_tpu.models import classic as j_classic
+from stereomatching_tpu.oracle import run_pipeline
+from stereomatching_tpu.utils.artifacts import load_artifacts, save_artifacts
+from stereomatching_tpu_torch import interop
+from stereomatching_tpu_torch.models import classic
+from stereomatching_tpu_torch.ops.contour import contour_bands
+from stereomatching_tpu_torch.ops.fused import match_score_edges_reference
+from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range_reference
+from stereomatching_tpu_torch.serving import Matcher
+from stereomatching_tpu_torch.utils import build
+from stereomatching_tpu_torch.utils.device import resolve_device
+from tests.util import synthetic_pair
+
+ROOT = Path(__file__).resolve().parent.parent
+MODES = [BoundaryMode.WRAP, BoundaryMode.GHOST]
+
+
+def u8_batch(n=3, h=48, w=64):
+    pairs = [synthetic_pair(h, w, seed=s) for s in range(n)]
+    return np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])
+
+
+def to_f32(u8):
+    return u8.astype(np.float32) / np.float32(256.0)
+
+
+def assert_artifacts_equal(port, ref):
+    port = interop.artifacts_to_numpy(port)
+    assert sorted(port) == sorted(ref)
+    for k, v in ref.items():
+        v = np.asarray(v)
+        assert port[k].dtype == v.dtype, k
+        assert np.array_equal(port[k], v), k
+
+
+def params_for(mode, rule, d=16, sw=21):
+    return StereoParams(num_shifts=d, square_width=sw, times=8, mode=mode, edge_rule=rule)
+
+
+@pytest.mark.parametrize("shifts_sw", [(8, 7), (16, 21)])
+@pytest.mark.parametrize("rule", ["exact", "reference"])
+@pytest.mark.parametrize("mode", MODES)
+def test_classic_batched_matches_jax_and_oracle(mode, rule, shifts_sw):
+    params = params_for(mode, rule, *shifts_sw)
+    lu, ru = u8_batch()
+    left, right = to_f32(lu), to_f32(ru)
+    port = classic.classic_forward_batched(torch.from_numpy(left), torch.from_numpy(right), params)
+    ref = jax.device_get(j_classic.classic_forward_batched(
+        jnp.asarray(left), jnp.asarray(right), params, use_pallas=False))
+    assert_artifacts_equal(port, ref)
+    # The oracle in float64 (the reference rule's float ops run in the
+    # input dtype, so the port gets float64 input for this comparison).
+    port64 = classic.classic_forward_batched(
+        torch.from_numpy(lu / 256.0), torch.from_numpy(ru / 256.0), params)
+    for i in range(lu.shape[0]):
+        for k, v in run_pipeline(lu[i] / 256.0, ru[i] / 256.0, params).items():
+            assert np.array_equal(port64[k][i].numpy(), v), k
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_classic_forward_single_pair_and_plain_route(mode):
+    params = params_for(mode, "exact")
+    lu, ru = u8_batch(1)
+    left, right = torch.from_numpy(to_f32(lu[0])), torch.from_numpy(to_f32(ru[0]))
+    port = classic.classic_forward(left, right, params)
+    ref = jax.device_get(j_classic.classic_forward(
+        jnp.asarray(to_f32(lu[0])), jnp.asarray(to_f32(ru[0])), params))
+    assert_artifacts_equal(port, ref)
+    assert port["min_elevation"].ndim == 0
+    # On CPU tensors the pipeline takes the kernels' plain versions.
+    best, winner, edges_l, edges_r = match_score_edges_reference(left, right, params)
+    web, min_e, max_e = fill_web_holes_range_reference(winner, params.times)
+    assert_artifacts_equal({
+        "edges-1": edges_l, "edges-2": edges_r, "score_best": best, "web-1": winner,
+        "web-2": web, "output-0": contour_bands(web, params.lines, min_e, max_e),
+        "min_elevation": min_e, "max_elevation": max_e,
+    }, ref)
+    with pytest.raises(ValueError):
+        classic.classic_forward_batched(left, right, params)
+
+
+def test_classic_pipeline_module():
+    params = params_for(BoundaryMode.GHOST, "exact")
+    pipe = classic.build_classic_pipeline(params)
+    assert isinstance(pipe, torch.nn.Module)
+    assert list(pipe.parameters()) == []
+    lu, ru = u8_batch(2)
+    left, right = torch.from_numpy(to_f32(lu)), torch.from_numpy(to_f32(ru))
+    batched = pipe(left, right)
+    single = pipe(left[1], right[1])
+    for k in batched:
+        assert torch.equal(batched[k][1], single[k]), k
+    with pytest.raises(ValueError):
+        pipe(left[:, :10, :10], right[:, :10, :10])  # square_width 21 > 10
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_matcher_cpu_matches_jax(mode):
+    params = params_for(mode, "exact")
+    lu, ru = u8_batch()
+    m = Matcher(params, device="cpu")
+    arts = m(lu, ru)
+    ref = jax.device_get(j_classic.classic_forward_batched(
+        jnp.asarray(to_f32(lu)), jnp.asarray(to_f32(ru)), params))
+    assert_artifacts_equal(arts, ref)
+    single = m(lu[2], ru[2])
+    for k, v in arts.items():
+        assert np.array_equal(single[k], v[2]), k
+    with pytest.raises(ValueError):
+        m(lu, ru[:, :, :32])
+
+
+def test_resume_across_packages(tmp_path):
+    """A web-1 checkpoint written by the JAX package resumes in the
+    port's classic_finish, and the other way round."""
+    params = params_for(BoundaryMode.GHOST, "exact")
+    lu, ru = u8_batch(2)
+    jax_arts = jax.device_get(j_classic.classic_forward_batched(
+        jnp.asarray(to_f32(lu)), jnp.asarray(to_f32(ru)), params))
+    path = tmp_path / "jax.npz"
+    save_artifacts(str(path), {**jax_arts, "params": np.asarray(params.to_json())})
+    ck = interop.artifacts_from_numpy(load_artifacts(str(path)), "cpu")
+    assert ck["web-1"].dtype == torch.int32 and ck["min_elevation"].shape == (2,)
+    assert isinstance(ck["params"], np.ndarray)  # non-numeric entries pass through
+    fin = classic.classic_finish(ck["web-1"], StereoParams.from_json(str(ck["params"])))
+    assert_artifacts_equal(fin, {k: jax_arts[k] for k in fin})
+
+    port_arts = classic.classic_forward_batched(
+        torch.from_numpy(to_f32(lu)), torch.from_numpy(to_f32(ru)), params)
+    path2 = tmp_path / "port.npz"
+    save_artifacts(str(path2), interop.artifacts_to_numpy(port_arts))
+    winner = load_artifacts(str(path2))["web-1"]
+    jfin = jax.device_get(jax.vmap(lambda w: j_classic.classic_finish(w, params))(
+        jnp.asarray(winner)))
+    assert_artifacts_equal({k: port_arts[k] for k in jfin}, jfin)
+
+
+def test_import_does_not_load_jax():
+    code = (
+        "import sys\n"
+        "import stereomatching_tpu_torch\n"
+        "import stereomatching_tpu_torch.ops.edges, stereomatching_tpu_torch.ops.matching\n"
+        "import stereomatching_tpu_torch.ops.aggregate, stereomatching_tpu_torch.ops.argmax\n"
+        "import stereomatching_tpu_torch.ops.diffusion, stereomatching_tpu_torch.ops.contour\n"
+        "import stereomatching_tpu_torch.ops.fused, stereomatching_tpu_torch.ops.fused_diffusion\n"
+        "import stereomatching_tpu_torch.models.classic, stereomatching_tpu_torch.serving\n"
+        "import stereomatching_tpu_torch.interop, stereomatching_tpu_torch.utils.build\n"
+        "from stereomatching_tpu_torch import Matcher, ClassicPipeline\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
+    """Asking for CUDA without a GPU raises, and so does building the
+    kernels without nvcc; neither returns a CPU stand-in."""
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the no-GPU refusal cannot be shown")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        Matcher(device="cuda")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    import torch.utils.cpp_extension as cpp_ext
+
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build("match_score_edges")
+    assert not (tmp_path / "build").exists() or not os.listdir(tmp_path / "build")

@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port's classic pipeline on one
+NVIDIA GPU, at the headline shape: ghost mode, exact rule, 1024x1024,
+64 shifts.
+
+    python3 tools/profile_torch_pipeline.py
+
+Prints the card's ``nvidia-smi`` name and power limit, then one line per
+reading:
+
+- device-resident ms/pair of ``ClassicPipeline`` at batch 1, 8 and 32:
+  5 repeats of 5 iterations each, timed with CUDA events, and the peak
+  device memory of that batch;
+- ``torch.profiler`` over 3 batches of 8: device time per kernel name
+  (total, share, per launch) and the device's busy share (union of the
+  kernel intervals over the span from the first kernel's start to the
+  last one's end);
+- ``Matcher`` (uint8 numpy in, numpy out) at batch 8, three runs, and
+  the split of one run into host u8->f32, host-to-device copy, pipeline
+  and device-to-host copy + numpy, each step synchronised.
+
+Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SIZE, SHIFTS, SEED = 1024, 64, 0
+
+
+def event_ms(fn, iters: int) -> float:
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def busy_share(intervals) -> tuple[float, float]:
+    """-> (busy us, span us) of a list of (start, end) kernel intervals."""
+    intervals = sorted(intervals)
+    busy, cur_s, cur_e = 0.0, *intervals[0]
+    for s, e in intervals[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, intervals[-1][1] - intervals[0][0]
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from stereomatching_tpu_torch import BoundaryMode, StereoParams
+    from stereomatching_tpu_torch.models.classic import ClassicPipeline
+    from stereomatching_tpu_torch.interop import artifacts_to_numpy
+    from stereomatching_tpu_torch.serving import Matcher
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    n = SIZE
+    params = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
+    pipe = ClassicPipeline(params)
+    rng = np.random.default_rng(SEED)
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"ghost, exact, {n}x{n}, D={SHIFTS}, random u8 pairs", flush=True)
+
+    def batch_u8(b):
+        return (rng.integers(0, 256, (b, n, n), dtype=np.uint8),
+                rng.integers(0, 256, (b, n, n), dtype=np.uint8))
+
+    def to_dev(u8):
+        return torch.from_numpy(u8.astype(np.float32) / np.float32(256.0)).to(dev)
+
+    for b in (1, 8, 32):
+        lt, rt = (to_dev(x) for x in batch_u8(b))
+        pipe(lt, rt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reps = [event_ms(lambda: pipe(lt, rt), 5) / b for _ in range(5)]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        print(f"[batch {b}] device-resident ms/pair, 5 repeats of 5: "
+              f"{', '.join(f'{r:.4f}' for r in reps)}; peak device memory "
+              f"{peak:.1f} MiB", flush=True)
+        del lt, rt
+
+    lt, rt = (to_dev(x) for x in batch_u8(8))
+    pipe(lt, rt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pipe(lt, rt)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        sys.exit("the profiler recorded no device activity")
+    per_name: dict[str, list[float]] = {}
+    for e in kernels:
+        per_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    total = sum(sum(v) for v in per_name.values())
+    print(f"[profile batch 8 x3] device time {total / 1e3:.3f} ms", flush=True)
+    for name, ts in sorted(per_name.items(), key=lambda kv: -sum(kv[1])):
+        print(f"  {sum(ts) / 1e3:9.3f} ms {100 * sum(ts) / total:6.2f}% "
+              f"{len(ts):5d} x {sum(ts) / len(ts):9.3f} us  {name[:90]}")
+    busy, span = busy_share([(e.time_range.start, e.time_range.end) for e in kernels])
+    print(f"[busy] device busy {100 * busy / span:.1f}% of a {span / 1e3:.3f} ms "
+          f"device span", flush=True)
+
+    matcher = Matcher(params, device=dev)
+    lu, ru = batch_u8(8)
+    matcher(lu, ru)
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        matcher(lu, ru)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    clock = time.perf_counter
+    t0 = clock()
+    lb, rb = matcher._to_brightness(lu), matcher._to_brightness(ru)
+    t1 = clock()
+    lt, rt = torch.from_numpy(lb).to(dev), torch.from_numpy(rb).to(dev)
+    torch.cuda.synchronize()
+    t2 = clock()
+    arts = matcher.pipeline(lt, rt)
+    torch.cuda.synchronize()
+    t3 = clock()
+    artifacts_to_numpy(arts)
+    t4 = clock()
+    whole = (t4 - t0) * 1e3
+    parts = {"host u8->f32": t1 - t0, "H2D": t2 - t1, "pipeline": t3 - t2,
+             "D2H + numpy": t4 - t3}
+    print(f"[Matcher batch 8] {', '.join(f'{r:.3f}' for r in runs)} ms; split of "
+          f"one {whole:.3f} ms run: " + ", ".join(
+              f"{k} {v * 1e3:.3f} ms ({100 * v * 1e3 / whole:.1f}%)"
+              for k, v in parts.items()), flush=True)
+
+
+if __name__ == "__main__":
+    main()
