@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stereomatching_tpu_torch``) on one
-NVIDIA GPU: builds the kernels from ``csrc/``, holds each against its
+NVIDIA GPU: builds the six kernels from ``csrc/``, holds each against its
 plain torch version on the card, drives the classic pipeline through
-``Matcher`` at 1024x1024 with 64 shifts, and times kernel vs plain paths.
+``Matcher`` and the SGM route through ``ModernMatcher`` at 1024x1024 with
+64 shifts / disparities, and times kernel vs plain paths.
 
     python3 chip_smoke.py
 
 Phases (one line each): device, build, K1 vs plain, K2 vs plain, the
-slice, times.  Then a JSON line describing each kernel, the card's
-``nvidia-smi`` name and power limit, and as the last line
+classic slice, classic times, K3-K6 vs plain, the SGM slice, SGM times.
+Then a JSON line describing each kernel (launches on its slice, error
+against its plain version, times, the card's bound for the same work),
+the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 before ``ok`` is printed; so does a host without CUDA, and a copy of this
 script without the package beside it.  Kernel comparisons are bitwise
-(tolerance 0: every plane on the path is an integer).
+(tolerance 0 on every plane, the float sub-pixel, filled and uniqueness
+planes included).
 
 No jax and no module of the JAX package is imported here.  Inputs are
 made with numpy from ``SEED``: random pairs, and textured scenes whose
 right image is the left one shifted by a known disparity per region, so
-the slice's winner plane is also checked against that ground truth.
+each slice's disparity plane is also checked against that ground truth.
 """
 
 from __future__ import annotations
@@ -30,6 +34,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SIZE, SHIFTS, BATCH, SEED = 1024, 64, 8, 0
+SGM_BENCH_BATCH = 32  # bench.py's SGM line runs batch 32
+# The share of the fine textures' region interiors on which the SGM slice
+# must find the true disparity.  The scenes are fixed by SEED and the
+# route is exact, so every run reads the same shares: 99.9882% on the
+# worst of the four on an H100, floored here.
+SGM_TRUTH_SHARE = 0.9998
+
+# The card's peaks for the bounds (NVIDIA H100 SXM data sheet and Hopper
+# white paper): 3.35 TB/s of HBM3; 64 INT32 lanes per SM x 132 SMs x
+# 1.98 GHz boost = 16.7 T int32 ops/s; 67 TFLOP/s float32 outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -42,8 +60,30 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def max_abs_diff(a, b) -> int:
+def max_abs_diff(a, b) -> float:
+    """Largest |a - b| (0.0 only where every element is equal; float
+    planes are also compared bit for bit by ``same``)."""
+    if a.is_floating_point() or b.is_floating_point():
+        return float((a.double() - b.double()).abs().max())
     return int((a.long() - b.long()).abs().max())
+
+
+def same(a, b) -> bool:
+    """Equal dtype, shape and bits."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """-> (least ms the card could take, "bytes" or "operations")."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def u8_to_brightness(x):
@@ -52,17 +92,20 @@ def u8_to_brightness(x):
     return x.astype(np.float32) / np.float32(256.0)
 
 
-def shifted_pair(rng, size: int, block: int, shifts: int):
+def shifted_pair(rng, size: int, block: int, shifts: int, sign: int = -1):
     """A ``block``-pixel random texture as the left image; the right image
-    is it shifted right by a disparity in [0, shifts) that is constant on
-    each of 4x4 regions.  -> (left u8, right u8, disparity int)."""
+    is it shifted by a disparity in [0, shifts) that is constant on each
+    of 4x4 regions: right(x) = left(x - disp) for ``sign`` -1 (the classic
+    pipeline's pairing, left x against right x + s), right(x) =
+    left(x + disp) for +1 (SGM's, left x against right x - d).
+    -> (left u8, right u8, disparity int)."""
     import numpy as np
 
     coarse = rng.integers(0, 256, (size // block + 1,) * 2, dtype=np.uint8)
     left = np.kron(coarse, np.ones((block, block), np.uint8))[:size, :size]
     q = size // 4
     disp = np.kron(rng.integers(0, shifts, (4, 4)), np.ones((q, q), np.int64))
-    right = np.take_along_axis(left, (np.arange(size) - disp) % size, axis=1)
+    right = np.take_along_axis(left, (np.arange(size) + sign * disp) % size, axis=1)
     return left, right, disp
 
 
@@ -80,8 +123,9 @@ def region_interiors(size: int, margin: int):
 
 
 def plain_artifacts(left, right, params):
-    """The slice's artifact dict from the kernels' plain torch versions, on
-    the inputs' device: the comparison the kernel path is held to."""
+    """The classic slice's artifact dict from the kernels' plain torch
+    versions, on the inputs' device: the comparison the kernel path is
+    held to."""
     from stereomatching_tpu_torch.ops.contour import contour_bands
     from stereomatching_tpu_torch.ops.fused import match_score_edges_reference
     from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range_reference
@@ -126,10 +170,12 @@ def main() -> None:
         fail(f"the port package is not beside this script: {e}")
     pkg_dir = Path(stereomatching_tpu_torch.__file__).resolve().parent
     check(pkg_dir.parent == ROOT, f"port imported from {pkg_dir}, not {ROOT}")
-    from stereomatching_tpu_torch import BoundaryMode, StereoParams
+    from stereomatching_tpu_torch import BoundaryMode, ModernParams, StereoParams
+    from stereomatching_tpu_torch.models import modern
     from stereomatching_tpu_torch.models.classic import ClassicPipeline
-    from stereomatching_tpu_torch.ops import fused, fused_diffusion
-    from stereomatching_tpu_torch.serving import Matcher
+    from stereomatching_tpu_torch.ops import costvolume, fused, fused_diffusion, fused_sgm, sgm
+    from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
+    from stereomatching_tpu_torch.utils.build import build_all
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -140,12 +186,19 @@ def main() -> None:
     print(f"[1 device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # Phase 2: build both kernels from the checkout's sources.
+    # Phase 2: build all six kernels from the checkout's sources, one nvcc
+    # per source, all started together.
     t0 = time.perf_counter()
+    sources = ["match_score_edges", "fill_web_holes", "sgm_volume", "sgm_directional",
+               "sgm_tail", "fill_invalid"]
+    build_all(sources)
     fused._lib()
-    fused_diffusion._lib()
-    print(f"[2 build] match_score_edges.cu + fill_web_holes.cu built and "
-          f"loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    fused_diffusion._lib("fill_web_holes")
+    fused_diffusion._lib("fill_invalid")
+    for name in ("sgm_volume", "sgm_directional", "sgm_tail"):
+        fused_sgm._lib(name)
+    print(f"[2 build] {', '.join(s + '.cu' for s in sources)} built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(SEED)
 
@@ -182,8 +235,9 @@ def main() -> None:
             check(err == 0, f"K2 {mode.value} {name} differs from plain (max |d| {err})")
     print(f"[4 K2] 4x{SIZE}x{SIZE} winner planes, times=32: web, min, max == "
           f"plain bitwise in both modes (max |d| {k2_err})", flush=True)
+    del winners
 
-    # Phase 5: the slice through Matcher, counted from zero.
+    # Phase 5: the classic slice through Matcher, counted from zero.
     params = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
     scenes = [shifted_pair(rng, SIZE, block, SHIFTS) for block in (2, 4, 2, 4, 8, 16)]
     scenes += [(rand_u8(SIZE, SIZE), rand_u8(SIZE, SIZE), None) for _ in range(2)]
@@ -228,7 +282,7 @@ def main() -> None:
           f"{', '.join(f'{h:.4%}' for h in recovered)} of the region interiors "
           f"of the fine textures; kernel launches {launches}", flush=True)
 
-    # Phase 6: times at the bench shape (ghost, 1024x1024, D=64, batch 8).
+    # Phase 6: classic times at the bench shape (ghost, 1024x1024, D=64, batch 8).
     kernels = ClassicPipeline(params)
     pipe_ms = cuda_time_ms(lambda: kernels(lt, rt), 5) / BATCH
     plain_pipe_ms = cuda_time_ms(lambda: plain_artifacts(lt, rt, params), 2) / BATCH
@@ -249,19 +303,183 @@ def main() -> None:
           f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms; "
           f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms "
           f"(per batch of {BATCH})", flush=True)
+    npix = BATCH * SIZE * SIZE
+    # K1: two f32 planes in, four int32 planes out; ~10 int ops per pixel
+    # and shift (match, separable box sums, argmax).  K2: one int32 plane
+    # in and out; ~6 int ops per pixel and step.
+    k1_bound = bound(24 * npix, 10 * npix * SHIFTS, INT32_OPS_PER_S)
+    k2_bound = bound(8 * npix, 6 * npix * (params.times - 1), INT32_OPS_PER_S)
+    del kernels, lt, rt, win, arts, plain, matcher
+
+    # Phase 7: K3-K6 against their plain versions at 4x1024x1024, D=64:
+    # census (int8) and SAD (int16) volumes, both through the four paths
+    # into int16, the tail with the uniqueness pass, and the fill on the
+    # tail's sub-pixel plane and LR mask.  Tolerance 0 on every plane.
+    errs = {"sgm_volume": 0, "sgm_directional": 0, "sgm_tail": 0, "fill_invalid": 0}
+
+    def hold(name, got, ref, what):
+        check(same(got, ref), f"{name} {what} differs from plain "
+              f"(max |d| {max_abs_diff(got, ref)})")
+        errs[name] = max(errs[name], max_abs_diff(got, ref))
+
+    notes = []
+    for cost, vdtype in (("census", torch.int8), ("sad", torch.int16)):
+        pix = [torch.from_numpy(rand_u8(4, SIZE, SIZE)).to(dev).to(torch.int32)
+               for _ in range(2)]
+        codes = [costvolume.census_transform(x) for x in pix] if cost == "census" else pix
+        vol = fused_sgm.sgm_volume(*codes, SHIFTS, cost, vdtype)
+        hold("sgm_volume", vol, fused_sgm.sgm_volume_reference(*codes, SHIFTS, cost, vdtype),
+             f"{cost} volume")
+        for along_y, reverse in sgm.PATHS:
+            agg = torch.empty(vol.shape, dtype=torch.int16, device=dev)
+            fused_sgm.sgm_directional(vol, agg, 8, 96, along_y, reverse, accumulate=False)
+            hold("sgm_directional", agg.to(torch.int32),
+                 fused_sgm.sgm_directional_reference(vol, 8, 96, along_y, reverse),
+                 f"{cost} path (along_y={along_y}, reverse={reverse})")
+        agg = fused_sgm.sgm_aggregate_paths(vol, 8, 96, torch.int16)
+        hold("sgm_directional", agg, sgm.sgm_aggregate(vol, 8, 96).to(torch.int16),
+             f"{cost} 4-path sum")
+        del vol
+        tail = fused_sgm.sgm_tail(agg, True)
+        tail_ref = fused_sgm.sgm_tail_reference(agg, True)
+        for what, a, b in zip(("disparity", "subpixel", "cost", "disparity_right", "c2"),
+                              tail, tail_ref):
+            hold("sgm_tail", a, b, f"{cost} {what}")
+        valid = costvolume.lr_consistency(tail[0], tail[3], 1, SHIFTS)
+        hold("fill_invalid", fused_diffusion.fill_invalid(tail[1], valid, 16),
+             fused_diffusion.fill_invalid_reference(tail[1], valid, 16), f"{cost} fill")
+        torch.cuda.synchronize()
+        notes.append(f"{cost}: {str(vdtype).split('.')[-1]} volume, int16 aggregate, "
+                     f"{float(valid.float().mean()):.2%} LR-valid")
+        del agg, tail, tail_ref, valid, pix, codes
+    print(f"[7 K3-K6] 4x{SIZE}x{SIZE}, D={SHIFTS}: volume, each path and the 4-path "
+          f"sum, tail (+ second best), fill == plain bitwise ({'; '.join(notes)}; "
+          f"max |d| {errs})", flush=True)
+
+    # Phase 8: the SGM slice through ModernMatcher (bench.py's SGM params:
+    # census, 4 paths, D=64), counted from zero.
+    mparams = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census",
+                           sgm_directions=4)
+    scenes = [shifted_pair(rng, SIZE, block, SHIFTS, sign=1) for block in (2, 4, 2, 4, 8, 16)]
+    scenes += [(rand_u8(SIZE, SIZE), rand_u8(SIZE, SIZE), None) for _ in range(2)]
+    left_u8 = np.stack([a for a, _, _ in scenes])
+    right_u8 = np.stack([b for _, b, _ in scenes])
+    mmatcher = ModernMatcher(mparams, device="cuda")
+    sgm_wrappers = {"sgm_volume": fused_sgm.sgm_volume,
+                    "sgm_directional": fused_sgm.sgm_directional,
+                    "sgm_tail": fused_sgm.sgm_tail,
+                    "fill_invalid": fused_diffusion.fill_invalid}
+    for fn in sgm_wrappers.values():
+        fn.launches = 0
+    out = mmatcher(left_u8, right_u8)
+    launches.update({name: fn.launches for name, fn in sgm_wrappers.items()})
+    for name in sgm_wrappers:
+        check(launches[name] > 0, f"the SGM path never launched {name}")
+    lt = torch.from_numpy(left_u8).to(dev).to(torch.int32)
+    rt = torch.from_numpy(right_u8).to(dev).to(torch.int32)
+    plain = {k: v.cpu() for k, v in modern.modern_forward_reference(lt, rt, mparams).items()}
+    keys = ["disparity", "subpixel", "disparity_right", "valid", "filled", "cost"]
+    check(sorted(out) == sorted(keys), f"SGM output keys {sorted(out)}")
+    for k in keys:
+        check(same(torch.from_numpy(out[k]), plain[k]),
+              f"SGM slice plane {k} differs from the plain pipeline")
+        check(out[k].shape == (BATCH, SIZE, SIZE), f"SGM {k} shape {out[k].shape}")
+    check(out["disparity"].min() >= 0 and out["disparity"].max() < SHIFTS,
+          "SGM disparity out of 0..D-1")
+    check(np.isfinite(out["subpixel"]).all() and np.isfinite(out["filled"]).all(),
+          "non-finite SGM float plane")
+    check(np.array_equal(out["filled"][out["valid"]], out["subpixel"][out["valid"]]),
+          "filled differs from subpixel on LR-valid pixels")
+    interior = region_interiors(SIZE, SHIFTS)
+    truth = []
+    for i in range(4):
+        hit = float((out["disparity"][i] == scenes[i][2])[interior].mean())
+        truth.append(hit)
+        check(hit >= SGM_TRUTH_SHARE,
+              f"SGM scene {i}: true disparity on {hit:.4%} of interiors")
+    print(f"[8 SGM slice] ModernMatcher(census, 4 paths, D={SHIFTS}) on "
+          f"{BATCH}x{SIZE}x{SIZE} (6 shifted textures, 2 random): {len(out)} planes "
+          f"== plain pipeline bitwise; true disparity on "
+          f"{', '.join(f'{h:.4%}' for h in truth)} of the region interiors of the "
+          f"fine textures; LR-valid {float(out['valid'].mean()):.2%}; kernel launches "
+          f"{ {k: launches[k] for k in sgm_wrappers} }", flush=True)
+    del plain, out
+
+    # Phase 9: SGM times.  Kernels at the slice's shapes (batch 8); the
+    # pipeline device-resident at bench.py's SGM batch 32 with the kernels
+    # and at batch 8 plain; ModernMatcher at batch 8.
+    codes = [costvolume.census_transform(x).contiguous() for x in (lt, rt)]
+    st, odt = modern._sgm_storage_dtype(mparams), modern._sgm_out_dtype(mparams)
+    vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", st)
+    agg = fused_sgm.sgm_aggregate_paths(vol, 8, 96, odt)
+    tail = fused_sgm.sgm_tail(agg)
+    sub, valid = tail[1], costvolume.lr_consistency(tail[0], tail[3], 1, SHIFTS)
+    ms = {
+        "sgm_volume": (cuda_time_ms(lambda: fused_sgm.sgm_volume(*codes, SHIFTS, "census", st), 5),
+                       cuda_time_ms(lambda: fused_sgm.sgm_volume_reference(
+                           *codes, SHIFTS, "census", st), 2)),
+        "sgm_directional": (cuda_time_ms(lambda: fused_sgm.sgm_aggregate_paths(vol, 8, 96, odt), 3),
+                            cuda_time_ms(lambda: sgm.sgm_aggregate(vol, 8, 96).to(odt), 1)),
+        "sgm_tail": (cuda_time_ms(lambda: fused_sgm.sgm_tail(agg), 5),
+                     cuda_time_ms(lambda: fused_sgm.sgm_tail_reference(agg), 2)),
+        "fill_invalid": (cuda_time_ms(lambda: fused_diffusion.fill_invalid(sub, valid, 16), 5),
+                         cuda_time_ms(lambda: fused_diffusion.fill_invalid_reference(
+                             sub, valid, 16), 2)),
+    }
+    nvox = npix * SHIFTS
+    # K3: two int32 code planes in, the int8 volume out; xor + popcount per
+    # element.  K4 (the 4 launches of one forward): the volume in, the
+    # int16 aggregate out; ~9 int ops per element and path.  K5: the
+    # aggregate in, four 4-byte planes out; ~10 int ops per element (left
+    # argmin carries + right-view argmin).  K6: f32 plane + bool mask in,
+    # f32 out; ~12 float ops per pixel and sweep.
+    vb, ab = torch.tensor([], dtype=st).element_size(), torch.tensor([], dtype=odt).element_size()
+    bounds = {
+        "sgm_volume": bound(8 * npix + vb * nvox, 2 * nvox, INT32_OPS_PER_S),
+        "sgm_directional": bound((vb + ab) * nvox, 4 * 9 * nvox, INT32_OPS_PER_S),
+        "sgm_tail": bound(ab * nvox + 16 * npix, 10 * nvox, INT32_OPS_PER_S),
+        "fill_invalid": bound(9 * npix, 12 * 16 * npix, FP32_OPS_PER_S),
+    }
+    del vol, agg, tail, sub, valid, codes
+    pipe = modern.ModernPipeline(mparams)
+    sgm_plain_ms = cuda_time_ms(lambda: modern.modern_forward_reference(lt, rt, mparams), 1) / BATCH
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mmatcher(left_u8, right_u8)
+    mmatcher_ms = (time.perf_counter() - t0) * 1e3 / (3 * BATCH)
+    big = [torch.from_numpy(rand_u8(SGM_BENCH_BATCH, SIZE, SIZE)).to(dev).to(torch.int32)
+           for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sgm_ms = cuda_time_ms(lambda: pipe(*big), 3) / SGM_BENCH_BATCH
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[9 SGM times] {smi}: pipeline {sgm_ms:.4f} ms/pair with kernels "
+          f"({1e3 / sgm_ms:.1f} pairs/s; device-resident batch {SGM_BENCH_BATCH}, peak "
+          f"{peak:.2f} GiB), plain {sgm_plain_ms:.4f} ms/pair (batch {BATCH}); "
+          f"ModernMatcher u8 in/numpy out {mmatcher_ms:.4f} ms/pair (batch {BATCH}); "
+          + "; ".join(f"{k} {a:.4f} ms vs plain {b:.4f} ms (bound {bounds[k][0]:.4f})"
+                      for k, (a, b) in ms.items())
+          + f" (per batch of {BATCH})", flush=True)
 
     src = "stereomatching_tpu_torch/csrc/"
+    rows = [
+        ("match_score_edges", "match_score_edges.cu", "stereomatching_tpu/ops/fused.py:1044",
+         k1_err, k1_ms, k1_plain_ms, k1_bound),
+        ("fill_web_holes_range", "fill_web_holes.cu",
+         "stereomatching_tpu/ops/fused_diffusion.py:344", k2_err, k2_ms, k2_plain_ms, k2_bound),
+        ("sgm_volume", "sgm_volume.cu", "stereomatching_tpu/ops/fused_sgm.py:784",
+         errs["sgm_volume"], *ms["sgm_volume"], bounds["sgm_volume"]),
+        ("sgm_directional", "sgm_directional.cu", "stereomatching_tpu/ops/fused_sgm.py:337",
+         errs["sgm_directional"], *ms["sgm_directional"], bounds["sgm_directional"]),
+        ("sgm_tail", "sgm_tail.cu", "stereomatching_tpu/ops/fused_sgm.py:1065",
+         errs["sgm_tail"], *ms["sgm_tail"], bounds["sgm_tail"]),
+        ("fill_invalid", "fill_invalid.cu", "stereomatching_tpu/ops/fused_diffusion.py:286",
+         errs["fill_invalid"], *ms["fill_invalid"], bounds["fill_invalid"]),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "match_score_edges", "route": "cuda",
-         "source": src + "match_score_edges.cu",
-         "replaces": "stereomatching_tpu/ops/fused.py:1044",
-         "launches": launches["match_score_edges"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fill_web_holes_range", "route": "cuda",
-         "source": src + "fill_web_holes.cu",
-         "replaces": "stereomatching_tpu/ops/fused_diffusion.py:344",
-         "launches": launches["fill_web_holes_range"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": name, "route": "cuda", "source": src + cu, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": err, "ms": kms, "plain_ms": pms,
+         "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+        for name, cu, replaces, err, kms, pms, b in rows
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

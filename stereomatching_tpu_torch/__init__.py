@@ -1,37 +1,47 @@
-"""stereomatching_tpu_torch — the classic stereo pipeline in PyTorch + CUDA.
+"""stereomatching_tpu_torch — the stereo pipelines in PyTorch + CUDA.
 
 A port of ``stereomatching_tpu`` (the JAX/Pallas package, which stays the
 reference) to PyTorch on an NVIDIA Hopper GPU.  Plain phases are torch
-ops; the two Pallas kernels of the classic pipeline are hand-written
-CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use:
+ops; the Pallas kernels on the ported routes are hand-written CUDA C++
+for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use:
 
-* ``ops.fused.match_score_edges`` — exact-rule edges + per-shift match
-  + square box score + last-wins argmax (Pallas
-  ``ops/fused.py::match_score_edges_pallas``);
-* ``ops.fused_diffusion.fill_web_holes_range`` — the hole-filling
-  Jacobi steps + per-image min/max (Pallas
-  ``ops/fused_diffusion.py::fill_web_holes_pallas``).
+* classic pipeline (``models/classic.py``, ``Matcher``):
+  ``ops.fused.match_score_edges`` (edges + match + box score + argmax)
+  and ``ops.fused_diffusion.fill_web_holes_range`` (hole-filling steps +
+  per-image min/max);
+* SGM route of the modern pipeline (``models/modern.py``,
+  ``ModernMatcher``): ``ops.fused_sgm.sgm_volume`` (census / SAD cost
+  volume), ``ops.fused_sgm.sgm_directional`` (one SGM path, four per
+  call), ``ops.fused_sgm.sgm_tail`` (argmin, sub-pixel, right view,
+  second best) and ``ops.fused_diffusion.fill_invalid`` (validity-aware
+  hole fill).
 
 Each kernel wrapper runs its plain torch version on CPU tensors and the
-kernel on CUDA tensors (no fallback).  The framework-free modules of the
-JAX package (``config``, ``oracle``, ``utils.{synthetic,artifacts,
-imageio}``) are imported, not copied; none of them imports jax.
+kernel on CUDA tensors (no fallback).  The port owns its parameters
+(``config``) and imports no module of the JAX package.
 """
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
+from stereomatching_tpu_torch.config import BoundaryMode, ModernParams, StereoParams
 
-__all__ = ["BoundaryMode", "StereoParams", "Matcher", "ClassicPipeline"]
+__all__ = [
+    "BoundaryMode", "StereoParams", "ModernParams",
+    "Matcher", "ClassicPipeline", "ModernMatcher", "ModernPipeline",
+]
 
 
 def __getattr__(name):
-    """Lazy re-exports so ``import stereomatching_tpu_torch`` stays light
+    """Lazy exports so ``import stereomatching_tpu_torch`` stays light
     (no torch import at package import time)."""
-    if name == "Matcher":
-        from stereomatching_tpu_torch.serving import Matcher
+    if name in ("Matcher", "ModernMatcher"):
+        from stereomatching_tpu_torch import serving
 
-        return Matcher
+        return getattr(serving, name)
     if name == "ClassicPipeline":
         from stereomatching_tpu_torch.models.classic import ClassicPipeline
 
         return ClassicPipeline
+    if name == "ModernPipeline":
+        from stereomatching_tpu_torch.models.modern import ModernPipeline
+
+        return ModernPipeline
     raise AttributeError(name)

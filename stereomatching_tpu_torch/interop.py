@@ -1,20 +1,38 @@
 """State carried across the two packages.
 
-The classic pipeline has no learned weights (its parameters are the
-shared ``StereoParams``); its state is the resumable artifact checkpoint
-(``stereomatching_tpu.utils.artifacts``, the CLI's ``--save-artifacts`` /
-``--resume``).  These two functions move an artifact dict between numpy
-(what the JAX package saves and loads) and port tensors, keeping dtypes
-(int32 planes, int32 scalars or [B]), so a ``web-1`` checkpoint written
-by either package resumes in the other's ``classic_finish``.
+Neither pipeline has learned weights.  What crosses is (a) the
+parameters, ``StereoParams`` / ``ModernParams``, which ``params_from_jax``
+turns from the JAX package's classes into the port's through their JSON
+form, and (b) the classic pipeline's resumable artifact checkpoint (the
+JAX CLI's ``--save-artifacts`` / ``--resume``): ``artifacts_from_numpy``
+and ``artifacts_to_numpy`` move an artifact dict between numpy (what the
+JAX package saves and loads) and port tensors, keeping dtypes (int32
+planes, int32 scalars or [B]), so a ``web-1`` checkpoint written by
+either package resumes in the other's ``classic_finish``.
+
+Nothing of the JAX package is imported here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
+
+from stereomatching_tpu_torch.config import ModernParams, StereoParams
+
+_PARAM_CLASSES = {"StereoParams": StereoParams, "ModernParams": ModernParams}
+
+
+def params_from_jax(p) -> Union[StereoParams, ModernParams]:
+    """The JAX package's ``StereoParams`` or ``ModernParams`` -> the
+    port's class of the same name with the same field values (through
+    ``p.to_json()``).  Raises ``TypeError`` for any other object."""
+    cls = _PARAM_CLASSES.get(type(p).__name__)
+    if cls is None or not hasattr(p, "to_json"):
+        raise TypeError(f"not a StereoParams or ModernParams: {type(p).__name__}")
+    return cls.from_json(p.to_json())
 
 
 def artifacts_from_numpy(

@@ -17,7 +17,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from stereomatching_tpu.config import StereoParams
+from stereomatching_tpu_torch.config import StereoParams
 from stereomatching_tpu_torch.ops.argmax import match_and_score
 from stereomatching_tpu_torch.ops.contour import contour_bands
 from stereomatching_tpu_torch.ops.edges import find_edges

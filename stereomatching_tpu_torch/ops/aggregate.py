@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from stereomatching_tpu.config import BoundaryMode
+from stereomatching_tpu_torch.config import BoundaryMode
 
 
 def wrap_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

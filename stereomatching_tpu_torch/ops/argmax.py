@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
+from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
 from stereomatching_tpu_torch.ops.aggregate import box_sum_padded, pad_plane
 from stereomatching_tpu_torch.ops.matching import extend_right_edges, match_plane
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from stereomatching_tpu.config import GHOST_BRIGHTNESS_FILL, BoundaryMode
+from stereomatching_tpu_torch.config import GHOST_BRIGHTNESS_FILL, BoundaryMode
 from stereomatching_tpu_torch.ops.aggregate import wrap_pad
 
 # (side_a offsets, side_b offsets) as (dx, dy), C summation order preserved

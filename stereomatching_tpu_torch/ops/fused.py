@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
+from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
 from stereomatching_tpu_torch.ops.argmax import match_and_score
 from stereomatching_tpu_torch.ops.edges import find_edges
 

@@ -1,0 +1,239 @@
+"""The SGM route's three volume kernels (counterpart of
+``stereomatching_tpu/ops/fused_sgm.py``):
+
+* ``sgm_volume`` (K3, ``csrc/sgm_volume.cu``): the per-pixel census or
+  SAD cost volume [B, H, W, D];
+* ``sgm_directional`` (K4, ``csrc/sgm_directional.cu``): one SGM path,
+  written or added into the aggregate; ``sgm_aggregate_paths`` runs the
+  four paths of the 4-direction sum;
+* ``sgm_tail`` (K5, ``csrc/sgm_tail.cu``): argmin, sub-pixel, winner
+  cost, right-view disparity and (optionally) the second-best cost, in
+  one pass over the aggregate.
+
+Volumes are [..., H, W, D], d innermost (the JAX package's ``hwd``
+layout).  Each wrapper runs its plain torch version (``*_reference``,
+beside it) on CPU tensors and its CUDA kernel on CUDA tensors; a failed
+build or launch raises and nothing falls back.  ``<wrapper>.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from stereomatching_tpu_torch.ops import sgm
+from stereomatching_tpu_torch.ops.costvolume import _extend_left, popcount32
+
+_VOL_DTYPES = (torch.int8, torch.int16, torch.int32)
+_AGG_DTYPES = (torch.int16, torch.int32)
+MAX_DISPARITIES = 256  # K4 keeps at most 8 disparities per lane
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "sgm_volume": [_P, _P, _P] + [_I] * 6 + [_P],
+    "sgm_directional": [_P, _I, _P] + [_I] * 10 + [_P],
+    "sgm_tail": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P],
+}
+
+
+@functools.cache
+def _lib(name: str) -> ctypes.CDLL:
+    from stereomatching_tpu_torch.utils.build import load
+
+    lib = load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Call the C entry ``name`` of ``csrc/<name>.cu`` with ``args`` and
+    the current stream of ``dev``; raise on a non-zero CUDA error."""
+    fn = getattr(_lib(name), name)
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _device_route(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version), False for CUDA tensors
+    (kernel); raises for mixed or other devices."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+# ---------------------------------------------------------------- K3
+
+
+def sgm_volume_reference(
+    ref: torch.Tensor, other: torch.Tensor, num_disparities: int,
+    cost: str = "census", dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """Plain torch: int32 cost inputs [..., H, W] (census codes for
+    census, intensities for SAD) -> vol [..., H, W, D] in ``dtype`` with
+    vol[..., y, x, d] = cost(ref[y, x], other[y, max(x - d, 0)])."""
+    ref = ref.to(torch.int32)
+    w = ref.shape[-1]
+    ext = _extend_left(other.to(torch.int32), num_disparities)
+    vol = torch.empty((*ref.shape, num_disparities), dtype=dtype, device=ref.device)
+    for d in range(num_disparities):
+        win = ext[..., num_disparities - d: num_disparities - d + w]
+        c = popcount32(ref ^ win) if cost == "census" else (ref - win).abs()
+        vol[..., d] = c.to(dtype)
+    return vol
+
+
+def sgm_volume(
+    ref: torch.Tensor, other: torch.Tensor, num_disparities: int,
+    cost: str = "census", dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """Per-pixel cost volume [..., H, W] x 2 -> [..., H, W, D] in
+    ``dtype`` (int8, int16 or int32; the caller picks one that holds
+    every cost).  CPU tensors run the plain version, CUDA tensors K3."""
+    if cost not in ("census", "sad"):
+        raise ValueError("cost must be 'census' or 'sad'")
+    if dtype not in _VOL_DTYPES:
+        raise ValueError(f"volume dtype must be one of {_VOL_DTYPES}, got {dtype}")
+    if ref.shape != other.shape or ref.ndim not in (2, 3):
+        raise ValueError(
+            f"need two equal [H, W] or [B, H, W] shapes, got "
+            f"{tuple(ref.shape)} and {tuple(other.shape)}")
+    if _device_route(ref, other):
+        return sgm_volume_reference(ref, other, num_disparities, cost, dtype)
+    for t in (ref, other):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("cost inputs must be contiguous int32")
+    squeeze = ref.ndim == 2
+    if squeeze:
+        ref, other = ref[None], other[None]
+    b, h, w = ref.shape
+    vol = torch.empty((b, h, w, num_disparities), dtype=dtype, device=ref.device)
+    _launch("sgm_volume", ref.device, ref.data_ptr(), other.data_ptr(),
+            vol.data_ptr(), b, h, w, num_disparities, int(cost == "census"),
+            vol.element_size())
+    sgm_volume.launches += 1
+    return vol[0] if squeeze else vol
+
+
+sgm_volume.launches = 0
+
+
+# ---------------------------------------------------------------- K4
+
+
+def sgm_directional_reference(
+    vol: torch.Tensor, p1: int, p2: int, along_y: bool, reverse: bool
+) -> torch.Tensor:
+    """Plain torch: one SGM path over vol [..., H, W, D] -> int32 L."""
+    return sgm.path(vol, p1, p2, along_y, reverse)
+
+
+def sgm_directional(
+    vol: torch.Tensor, agg: torch.Tensor, p1: int, p2: int,
+    along_y: bool, reverse: bool, accumulate: bool,
+) -> torch.Tensor:
+    """One SGM path over vol [..., H, W, D] (int8/int16/int32), written
+    into ``agg`` (same shape, int16/int32) or, with ``accumulate``, added
+    to it.  Updates ``agg`` in place (the aggregate is the largest buffer
+    of the route, so the paths share it) and returns it.  The caller
+    keeps every value inside agg's dtype.  CPU tensors run the plain
+    version, CUDA tensors K4."""
+    if vol.shape != agg.shape or vol.ndim not in (3, 4):
+        raise ValueError(
+            f"need equal [H, W, D] or [B, H, W, D] shapes, got "
+            f"{tuple(vol.shape)} and {tuple(agg.shape)}")
+    if vol.dtype not in _VOL_DTYPES or agg.dtype not in _AGG_DTYPES:
+        raise ValueError(f"unsupported dtypes {vol.dtype} / {agg.dtype}")
+    if _device_route(vol, agg):
+        path = sgm_directional_reference(vol, p1, p2, along_y, reverse)
+        if accumulate:
+            agg += path.to(agg.dtype)
+        else:
+            agg.copy_(path)
+        return agg
+    if not (vol.is_contiguous() and agg.is_contiguous()):
+        raise ValueError("vol and agg must be contiguous")
+    d = vol.shape[-1]
+    if d > MAX_DISPARITIES:
+        raise ValueError(f"sgm_directional takes D <= {MAX_DISPARITIES}, got {d}")
+    b, h, w = (vol.shape[:-1] if vol.ndim == 4 else (1, *vol.shape[:-1]))
+    _launch("sgm_directional", vol.device, vol.data_ptr(), vol.element_size(),
+            agg.data_ptr(), agg.element_size(), b, h, w, d, p1, p2,
+            int(along_y), int(reverse), int(accumulate))
+    sgm_directional.launches += 1
+    return agg
+
+
+sgm_directional.launches = 0
+
+
+def sgm_aggregate_paths(
+    vol: torch.Tensor, p1: int, p2: int, out_dtype: torch.dtype = torch.int32
+) -> torch.Tensor:
+    """The 4-path SGM sum of vol [..., H, W, D] -> ``out_dtype``, same
+    shape: ``sgm_directional`` for lr (written), rl, tb and bt (added).
+    Equal to ``ops.sgm.sgm_aggregate(vol, p1, p2)`` in every value the
+    dtype holds."""
+    agg = torch.empty(vol.shape, dtype=out_dtype, device=vol.device)
+    for i, (along_y, reverse) in enumerate(sgm.PATHS):
+        sgm_directional(vol, agg, p1, p2, along_y, reverse, accumulate=i > 0)
+    return agg
+
+
+# ---------------------------------------------------------------- K5
+
+
+def sgm_tail_reference(
+    agg: torch.Tensor, with_uniqueness: bool = False
+) -> Tuple[torch.Tensor, ...]:
+    """Plain torch: the ops/sgm.py tail functions on agg [..., H, W, D]."""
+    disp, sub, cost = sgm.volume_argmin_subpixel(agg)
+    dr = sgm.right_disparity_from_left_volume(agg)
+    if not with_uniqueness:
+        return disp, sub, cost, dr
+    return disp, sub, cost, dr, sgm.second_best_outside_neighborhood(agg, disp)
+
+
+def sgm_tail(agg: torch.Tensor, with_uniqueness: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The SGM tail in one pass over the aggregate [..., H, W, D] (int16
+    or int32) -> (disparity int32, subpixel f32, cost int32,
+    disparity_right int32) [..., H, W], plus the second-best cost
+    outside the winner's +-1 (int32) with ``with_uniqueness``.  CPU
+    tensors run the plain version, CUDA tensors K5."""
+    if agg.ndim not in (3, 4):
+        raise ValueError(f"need [H, W, D] or [B, H, W, D], got {tuple(agg.shape)}")
+    if agg.dtype not in _AGG_DTYPES:
+        raise ValueError(f"aggregate dtype must be one of {_AGG_DTYPES}, got {agg.dtype}")
+    if _device_route(agg):
+        return sgm_tail_reference(agg, with_uniqueness)
+    if not agg.is_contiguous():
+        raise ValueError("the aggregate must be contiguous")
+    squeeze = agg.ndim == 3
+    if squeeze:
+        agg = agg[None]
+    b, h, w, d = agg.shape
+    outs = [torch.empty((b, h, w), dtype=dt, device=agg.device)
+            for dt in (torch.int32, torch.float32, torch.int32, torch.int32)]
+    if with_uniqueness:
+        outs.append(torch.empty((b, h, w), dtype=torch.int32, device=agg.device))
+    c2_ptr = outs[4].data_ptr() if with_uniqueness else None
+    _launch("sgm_tail", agg.device, agg.data_ptr(), agg.element_size(),
+            *[o.data_ptr() for o in outs[:4]], c2_ptr, b, h, w, d)
+    sgm_tail.launches += 1
+    return tuple(o[0] for o in outs) if squeeze else tuple(outs)
+
+
+sgm_tail.launches = 0

@@ -1,11 +1,16 @@
-"""Serving API: ``Matcher`` runs the classic pipeline on one device
-(counterpart of ``stereomatching_tpu/serving.py::Matcher``).
+"""Serving API on one device (counterpart of
+``stereomatching_tpu/serving.py``):
 
     matcher = Matcher(StereoParams(num_shifts=64, edge_rule="exact"), device="cuda")
-    arts = matcher(left_u8, right_u8)      # dict of numpy arrays
+    arts = matcher(left_u8, right_u8)      # classic artifacts, numpy
 
-It accepts uint8 pixel arrays (brightness = pixel / 256, float32) or
-brightness floats, single pairs [H, W] or batches [B, H, W].
+    sgm = ModernMatcher(ModernParams(num_disparities=64, aggregation="sgm",
+                                     cost="census"), device="cuda")
+    out = sgm(left_u8, right_u8)           # disparity, subpixel, ... numpy
+
+``Matcher`` accepts uint8 pixel arrays (brightness = pixel / 256,
+float32) or brightness floats; ``ModernMatcher`` takes 0..255 integer
+pixels.  Both take single pairs [H, W] or batches [B, H, W].
 """
 
 from __future__ import annotations
@@ -15,9 +20,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from stereomatching_tpu.config import StereoParams
+from stereomatching_tpu_torch.config import ModernParams, StereoParams
 from stereomatching_tpu_torch.interop import artifacts_to_numpy
 from stereomatching_tpu_torch.models.classic import ClassicPipeline
+from stereomatching_tpu_torch.models.modern import ModernPipeline
 from stereomatching_tpu_torch.utils.device import resolve_device
 
 
@@ -50,4 +56,43 @@ class Matcher:
             raise ValueError(f"need [H, W] or [B, H, W], got {lb.shape}")
         lt = torch.from_numpy(lb).to(self.device)
         rt = torch.from_numpy(rb).to(self.device)
+        return artifacts_to_numpy(self.pipeline(lt, rt))
+
+
+class ModernMatcher:
+    """Modern-pipeline runner (the SGM route) on ``device`` ("cuda" runs
+    the kernels, "cpu" their plain versions; a missing GPU raises)."""
+
+    def __init__(self, params: ModernParams, device: str | torch.device = "cuda"):
+        self.params = params
+        self.device = resolve_device(device)
+        self.pipeline = ModernPipeline(params).eval()
+
+    @staticmethod
+    def _to_pixels(img: np.ndarray) -> np.ndarray:
+        """0..255 integer pixel planes; uint8 stays uint8 (widened to
+        int32 on the device: the same values, 4x fewer host-to-device
+        bytes), other integer types become int32.  Float inputs must be
+        on the same 0..255 scale: [0, 1] brightness floats are rejected,
+        since truncating them would zero the image."""
+        img = np.asarray(img)
+        if np.issubdtype(img.dtype, np.floating):
+            if img.size and float(img.max()) <= 1.0 and float(img.min()) >= 0.0:
+                raise ValueError(
+                    "ModernMatcher takes 0..255 pixel values, not [0,1) "
+                    "brightness floats (multiply by 256 and floor first)"
+                )
+        elif not np.issubdtype(img.dtype, np.integer):
+            raise ValueError(f"unsupported image dtype {img.dtype}")
+        return img if img.dtype == np.uint8 else img.astype(np.int32)
+
+    def __call__(self, left: np.ndarray, right: np.ndarray) -> Dict[str, np.ndarray]:
+        lp = self._to_pixels(left)
+        rp = self._to_pixels(right)
+        if lp.shape != rp.shape:
+            raise ValueError("the two images must have equal width and height")
+        if lp.ndim not in (2, 3):
+            raise ValueError(f"need [H, W] or [B, H, W], got {lp.shape}")
+        lt = torch.from_numpy(np.ascontiguousarray(lp)).to(self.device).to(torch.int32)
+        rt = torch.from_numpy(np.ascontiguousarray(rp)).to(self.device).to(torch.int32)
         return artifacts_to_numpy(self.pipeline(lt, rt))

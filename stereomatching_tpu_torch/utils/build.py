@@ -40,29 +40,49 @@ def find_nvcc() -> str:
     )
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (plus the ``*.cuh`` it includes) into
-    ``BUILD_DIR`` unless an up-to-date library is there -> its path."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+def _target(name: str) -> Path:
+    """Library path of ``csrc/<name>.cu``, named by a hash of the source,
+    the ``*.cuh`` headers and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> list[Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that has no
+    up-to-date library in ``BUILD_DIR``, one ``nvcc`` process per source,
+    all started together -> the libraries' paths.  Raises
+    ``RuntimeError`` naming each source that failed."""
+    outs = [_target(n) for n in names]
+    todo = [(n, o) for n, o in zip(names, outs) if not o.exists()]
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed building {src.name} (exit {res.returncode}):\n"
-            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for cmd, tmp, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (plus the ``*.cuh`` it includes) into
+    ``BUILD_DIR`` unless an up-to-date library is there -> its path."""
+    return build_all([name])[0]
 
 
 @functools.cache

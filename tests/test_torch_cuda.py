@@ -1,5 +1,7 @@
 """The port's CUDA kernels held bitwise against their plain torch
-versions on the card (tolerance 0: every plane is an integer).
+versions on the card (tolerance 0 on every plane: the integer ones, and
+the float sub-pixel and filled planes, whose kernels round as the plain
+versions do).
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a GPU.  The file imports no jax (the GPU host need not
@@ -12,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu_torch.ops import fused, fused_diffusion
+from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
+from stereomatching_tpu_torch.config import ModernParams
+from stereomatching_tpu_torch.models import modern
+from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_sgm, sgm
 
 MODES = [BoundaryMode.WRAP, BoundaryMode.GHOST]
 
@@ -75,3 +79,125 @@ def test_kernel_wrappers_check_inputs(cuda_device):
         fused.match_score_edges(x.transpose(1, 2), x.transpose(1, 2), params)
     with pytest.raises(ValueError):
         fused_diffusion.fill_web_holes_range(x, 4)  # float32, not int32
+
+
+SGM_SHAPES = [(2, 37, 45), (1, 64, 96), (3, 19, 130)]
+DISPARITIES = [8, 11, 64]
+
+
+def rand_codes(device, shape, cost, seed):
+    rng = np.random.default_rng(seed)
+    hi = 1 << 24 if cost == "census" else 256
+    return [torch.from_numpy(rng.integers(0, hi, shape).astype(np.int32)).to(device)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", DISPARITIES)
+@pytest.mark.parametrize("cost_dtype", [("census", torch.int8), ("sad", torch.int16),
+                                        ("census", torch.int32)])
+@pytest.mark.parametrize("shape", SGM_SHAPES)
+def test_sgm_volume_kernel_matches_plain(cuda_device, shape, cost_dtype, d):
+    cost, dtype = cost_dtype
+    ref, other = rand_codes(cuda_device, shape, cost, 21)
+    before = fused_sgm.sgm_volume.launches
+    got = fused_sgm.sgm_volume(ref, other, d, cost, dtype)
+    torch.cuda.synchronize()
+    assert fused_sgm.sgm_volume.launches == before + 1
+    assert got.dtype == dtype and got.shape == (*shape, d)
+    assert torch.equal(got, fused_sgm.sgm_volume_reference(ref, other, d, cost, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", DISPARITIES)
+@pytest.mark.parametrize("vol_agg", [(torch.int8, torch.int16), (torch.int16, torch.int16),
+                                     (torch.int32, torch.int32)])
+@pytest.mark.parametrize("shape", SGM_SHAPES)
+def test_sgm_directional_kernel_matches_plain(cuda_device, shape, vol_agg, d):
+    """Each of the four paths alone (written), then the 4-path sum."""
+    vol_dtype, agg_dtype = vol_agg
+    rng = np.random.default_rng(22)
+    vol = torch.from_numpy(rng.integers(0, 25, (*shape, d)).astype(np.int32))
+    vol = vol.to(vol_dtype).to(cuda_device)
+    p1, p2 = (8, 96) if agg_dtype == torch.int16 else (10, 20000)
+    for along_y, reverse in sgm.PATHS:
+        agg = torch.full(vol.shape, -1, dtype=agg_dtype, device=cuda_device)
+        fused_sgm.sgm_directional(vol, agg, p1, p2, along_y, reverse, accumulate=False)
+        ref = fused_sgm.sgm_directional_reference(vol, p1, p2, along_y, reverse)
+        assert torch.equal(agg.to(torch.int32), ref), (along_y, reverse)
+    before = fused_sgm.sgm_directional.launches
+    got = fused_sgm.sgm_aggregate_paths(vol, p1, p2, agg_dtype)
+    torch.cuda.synchronize()
+    assert fused_sgm.sgm_directional.launches == before + 4
+    assert torch.equal(got.to(torch.int32), sgm.sgm_aggregate(vol, p1, p2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", DISPARITIES)
+@pytest.mark.parametrize("agg_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("shape", SGM_SHAPES)
+def test_sgm_tail_kernel_matches_plain(cuda_device, shape, agg_dtype, d):
+    rng = np.random.default_rng(23)
+    agg = torch.from_numpy(rng.integers(0, 60, (*shape, d)).astype(np.int32))
+    agg = agg.to(agg_dtype).to(cuda_device)
+    for uniq in (False, True):
+        before = fused_sgm.sgm_tail.launches
+        got = fused_sgm.sgm_tail(agg, uniq)
+        torch.cuda.synchronize()
+        assert fused_sgm.sgm_tail.launches == before + 1
+        ref = fused_sgm.sgm_tail_reference(agg, uniq)
+        assert len(got) == len(ref) == 4 + uniq
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations", [0, 1, 2, 3, 16])
+@pytest.mark.parametrize("shape", [(2, 37, 45), (1, 1, 70), (3, 64, 33)])
+def test_fill_invalid_kernel_matches_plain(cuda_device, shape, iterations):
+    rng = np.random.default_rng(24)
+    d = torch.from_numpy((rng.random(shape) * 64).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.random(shape) < 0.3).to(cuda_device)
+    d0, v0 = d.clone(), v.clone()
+    before = fused_diffusion.fill_invalid.launches
+    got = fused_diffusion.fill_invalid(d, v, iterations)
+    torch.cuda.synchronize()
+    assert fused_diffusion.fill_invalid.launches == before + iterations
+    assert torch.equal(d, d0) and torch.equal(v, v0)  # inputs untouched
+    ref = fused_diffusion.fill_invalid_reference(d, v, iterations)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))  # bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(cost="census", num_disparities=64),
+                                dict(cost="sad", num_disparities=11, uniqueness=True,
+                                     median_filter=True),
+                                dict(cost="census", num_disparities=8, sgm_p2=20000,
+                                     fill_mode="background", uniqueness=True)])
+def test_modern_forward_kernels_match_plain(cuda_device, kw):
+    params = ModernParams(aggregation="sgm", **kw)
+    rng = np.random.default_rng(25)
+    left = rng.integers(0, 256, (2, 45, 77)).astype(np.int32)
+    right = np.roll(left, -3, axis=2)
+    lt, rt = (torch.from_numpy(x).to(cuda_device) for x in (left, right))
+    got = modern.modern_forward(lt, rt, params)
+    ref = modern.modern_forward_reference(lt, rt, params)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_sgm_wrappers_check_inputs(cuda_device):
+    x = torch.zeros((2, 16, 16), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        fused_sgm.sgm_volume(x.float(), x.float(), 8)
+    with pytest.raises(ValueError):
+        fused_sgm.sgm_volume(x.transpose(1, 2), x.transpose(1, 2), 8)
+    vol = torch.zeros((2, 16, 16, 300), dtype=torch.int16, device=cuda_device)
+    with pytest.raises(ValueError):
+        fused_sgm.sgm_directional(vol, vol.clone(), 8, 96, False, False, False)  # D > 256
+    with pytest.raises(ValueError):
+        fused_diffusion.fill_invalid(x.float(), x, 4)  # validity must be bool
+    with pytest.raises(ValueError):
+        fused_sgm.sgm_tail(vol.transpose(1, 2))

@@ -16,6 +16,7 @@ from stereomatching_tpu.config import StereoParams
 from stereomatching_tpu.ops.argmax import match_and_score as j_match_and_score
 from stereomatching_tpu.ops.diffusion import fill_web_holes as j_fill_web_holes
 from stereomatching_tpu.ops.edges import find_edges as j_find_edges
+from stereomatching_tpu_torch.interop import params_from_jax
 from stereomatching_tpu_torch.ops import fused, fused_diffusion
 from tests.test_torch_ops import MODES, brightness_batch
 
@@ -35,21 +36,23 @@ def test_match_score_edges_cpu_matches_jax(mode, shifts_sw):
     params = StereoParams(num_shifts=d, square_width=sw, mode=mode, edge_rule="exact")
     left, right = brightness_batch()
     before = fused.match_score_edges.launches
-    got = fused.match_score_edges(torch.from_numpy(left), torch.from_numpy(right), params)
+    got = fused.match_score_edges(torch.from_numpy(left), torch.from_numpy(right),
+                                  params_from_jax(params))
     assert fused.match_score_edges.launches == before  # CPU: no kernel launch
     for i in range(left.shape[0]):
         for port, ref in zip(got, jax_match_score_edges(left[i], right[i], params)):
             assert port.dtype == torch.int32
             assert np.array_equal(port[i].numpy(), ref)
     # 2-D input gives 2-D planes.
-    single = fused.match_score_edges(torch.from_numpy(left[0]), torch.from_numpy(right[0]), params)
+    single = fused.match_score_edges(torch.from_numpy(left[0]), torch.from_numpy(right[0]),
+                                     params_from_jax(params))
     for a, b in zip(single, got):
         assert torch.equal(a, b[0])
 
 
 def test_match_score_edges_rejects_unported_options():
     left, right = (torch.from_numpy(x) for x in brightness_batch(1))
-    params = StereoParams(num_shifts=8, square_width=7, edge_rule="exact")
+    params = params_from_jax(StereoParams(num_shifts=8, square_width=7, edge_rule="exact"))
     with pytest.raises(NotImplementedError):
         fused.match_score_edges(left, right, params, subpixel=True)
     with pytest.raises(ValueError):
@@ -76,7 +79,7 @@ def test_fill_web_holes_range_cpu_matches_jax(times):
 
 
 def test_wrappers_refuse_other_devices():
-    params = StereoParams(num_shifts=8, square_width=7, edge_rule="exact")
+    params = params_from_jax(StereoParams(num_shifts=8, square_width=7, edge_rule="exact"))
     meta = torch.empty((1, 8, 8), device="meta")
     with pytest.raises(ValueError):
         fused.match_score_edges(meta, meta, params)

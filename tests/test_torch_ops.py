@@ -18,6 +18,7 @@ from stereomatching_tpu.ops import contour as j_contour
 from stereomatching_tpu.ops import diffusion as j_diffusion
 from stereomatching_tpu.ops import edges as j_edges
 from stereomatching_tpu.ops import matching as j_matching
+from stereomatching_tpu_torch.interop import params_from_jax
 from stereomatching_tpu_torch.ops import aggregate, argmax, contour, diffusion, edges, matching
 from tests.util import synthetic_pair
 
@@ -122,7 +123,8 @@ def test_match_and_score(mode, shifts_sw):
     d, sw = shifts_sw
     params = StereoParams(num_shifts=d, square_width=sw, mode=mode, edge_rule="exact")
     el, er = edge_batch(mode)
-    best, winner = argmax.match_and_score(torch.from_numpy(el), torch.from_numpy(er), params)
+    best, winner = argmax.match_and_score(torch.from_numpy(el), torch.from_numpy(er),
+                                          params_from_jax(params))
     for i in range(el.shape[0]):
         jb, jw = j_argmax.match_and_score(jnp.asarray(el[i]), jnp.asarray(er[i]), params)
         assert_same(best[i], jb)
@@ -136,7 +138,8 @@ def test_match_and_score_all_equal_scores_pick_last_shift(mode):
     winner = D everywhere."""
     params = StereoParams(num_shifts=8, square_width=7, mode=mode)
     zeros = np.zeros((48, 64), np.int32)
-    best, winner = argmax.match_and_score(torch.from_numpy(zeros), torch.from_numpy(zeros), params)
+    best, winner = argmax.match_and_score(torch.from_numpy(zeros), torch.from_numpy(zeros),
+                                          params_from_jax(params))
     jb, jw = j_argmax.match_and_score(jnp.asarray(zeros), jnp.asarray(zeros), params)
     assert_same(best, jb)
     assert_same(winner, jw)

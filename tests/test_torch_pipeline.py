@@ -15,16 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
+from stereomatching_tpu.config import BoundaryMode, ModernParams, StereoParams
 from stereomatching_tpu.models import classic as j_classic
 from stereomatching_tpu.oracle import run_pipeline
 from stereomatching_tpu.utils.artifacts import load_artifacts, save_artifacts
 from stereomatching_tpu_torch import interop
+from stereomatching_tpu_torch.config import ModernParams as PortModernParams
+from stereomatching_tpu_torch.config import StereoParams as PortStereoParams
 from stereomatching_tpu_torch.models import classic
 from stereomatching_tpu_torch.ops.contour import contour_bands
 from stereomatching_tpu_torch.ops.fused import match_score_edges_reference
 from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range_reference
-from stereomatching_tpu_torch.serving import Matcher
+from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
 from stereomatching_tpu_torch.utils import build
 from stereomatching_tpu_torch.utils.device import resolve_device
 from tests.util import synthetic_pair
@@ -62,14 +64,15 @@ def test_classic_batched_matches_jax_and_oracle(mode, rule, shifts_sw):
     params = params_for(mode, rule, *shifts_sw)
     lu, ru = u8_batch()
     left, right = to_f32(lu), to_f32(ru)
-    port = classic.classic_forward_batched(torch.from_numpy(left), torch.from_numpy(right), params)
+    port = classic.classic_forward_batched(torch.from_numpy(left), torch.from_numpy(right),
+                                           interop.params_from_jax(params))
     ref = jax.device_get(j_classic.classic_forward_batched(
         jnp.asarray(left), jnp.asarray(right), params, use_pallas=False))
     assert_artifacts_equal(port, ref)
     # The oracle in float64 (the reference rule's float ops run in the
     # input dtype, so the port gets float64 input for this comparison).
     port64 = classic.classic_forward_batched(
-        torch.from_numpy(lu / 256.0), torch.from_numpy(ru / 256.0), params)
+        torch.from_numpy(lu / 256.0), torch.from_numpy(ru / 256.0), interop.params_from_jax(params))
     for i in range(lu.shape[0]):
         for k, v in run_pipeline(lu[i] / 256.0, ru[i] / 256.0, params).items():
             assert np.array_equal(port64[k][i].numpy(), v), k
@@ -80,26 +83,27 @@ def test_classic_forward_single_pair_and_plain_route(mode):
     params = params_for(mode, "exact")
     lu, ru = u8_batch(1)
     left, right = torch.from_numpy(to_f32(lu[0])), torch.from_numpy(to_f32(ru[0]))
-    port = classic.classic_forward(left, right, params)
+    port = classic.classic_forward(left, right, interop.params_from_jax(params))
     ref = jax.device_get(j_classic.classic_forward(
         jnp.asarray(to_f32(lu[0])), jnp.asarray(to_f32(ru[0])), params))
     assert_artifacts_equal(port, ref)
     assert port["min_elevation"].ndim == 0
     # On CPU tensors the pipeline takes the kernels' plain versions.
-    best, winner, edges_l, edges_r = match_score_edges_reference(left, right, params)
-    web, min_e, max_e = fill_web_holes_range_reference(winner, params.times)
+    pp = interop.params_from_jax(params)
+    best, winner, edges_l, edges_r = match_score_edges_reference(left, right, pp)
+    web, min_e, max_e = fill_web_holes_range_reference(winner, pp.times)
     assert_artifacts_equal({
         "edges-1": edges_l, "edges-2": edges_r, "score_best": best, "web-1": winner,
         "web-2": web, "output-0": contour_bands(web, params.lines, min_e, max_e),
         "min_elevation": min_e, "max_elevation": max_e,
     }, ref)
     with pytest.raises(ValueError):
-        classic.classic_forward_batched(left, right, params)
+        classic.classic_forward_batched(left, right, pp)
 
 
 def test_classic_pipeline_module():
     params = params_for(BoundaryMode.GHOST, "exact")
-    pipe = classic.build_classic_pipeline(params)
+    pipe = classic.build_classic_pipeline(interop.params_from_jax(params))
     assert isinstance(pipe, torch.nn.Module)
     assert list(pipe.parameters()) == []
     lu, ru = u8_batch(2)
@@ -116,7 +120,7 @@ def test_classic_pipeline_module():
 def test_matcher_cpu_matches_jax(mode):
     params = params_for(mode, "exact")
     lu, ru = u8_batch()
-    m = Matcher(params, device="cpu")
+    m = Matcher(interop.params_from_jax(params), device="cpu")
     arts = m(lu, ru)
     ref = jax.device_get(j_classic.classic_forward_batched(
         jnp.asarray(to_f32(lu)), jnp.asarray(to_f32(ru)), params))
@@ -140,11 +144,12 @@ def test_resume_across_packages(tmp_path):
     ck = interop.artifacts_from_numpy(load_artifacts(str(path)), "cpu")
     assert ck["web-1"].dtype == torch.int32 and ck["min_elevation"].shape == (2,)
     assert isinstance(ck["params"], np.ndarray)  # non-numeric entries pass through
-    fin = classic.classic_finish(ck["web-1"], StereoParams.from_json(str(ck["params"])))
+    fin = classic.classic_finish(ck["web-1"], PortStereoParams.from_json(str(ck["params"])))
     assert_artifacts_equal(fin, {k: jax_arts[k] for k in fin})
 
     port_arts = classic.classic_forward_batched(
-        torch.from_numpy(to_f32(lu)), torch.from_numpy(to_f32(ru)), params)
+        torch.from_numpy(to_f32(lu)), torch.from_numpy(to_f32(ru)),
+        interop.params_from_jax(params))
     path2 = tmp_path / "port.npz"
     save_artifacts(str(path2), interop.artifacts_to_numpy(port_arts))
     winner = load_artifacts(str(path2))["web-1"]
@@ -154,22 +159,49 @@ def test_resume_across_packages(tmp_path):
 
 
 def test_import_does_not_load_jax():
+    """Importing every module of the port (and its lazy exports) loads
+    neither jax nor any module of the JAX package."""
     code = (
-        "import sys\n"
-        "import stereomatching_tpu_torch\n"
-        "import stereomatching_tpu_torch.ops.edges, stereomatching_tpu_torch.ops.matching\n"
-        "import stereomatching_tpu_torch.ops.aggregate, stereomatching_tpu_torch.ops.argmax\n"
-        "import stereomatching_tpu_torch.ops.diffusion, stereomatching_tpu_torch.ops.contour\n"
-        "import stereomatching_tpu_torch.ops.fused, stereomatching_tpu_torch.ops.fused_diffusion\n"
-        "import stereomatching_tpu_torch.models.classic, stereomatching_tpu_torch.serving\n"
-        "import stereomatching_tpu_torch.interop, stereomatching_tpu_torch.utils.build\n"
-        "from stereomatching_tpu_torch import Matcher, ClassicPipeline\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "import pkgutil, sys\n"
+        "import stereomatching_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    __import__(n)\n"
+        "from stereomatching_tpu_torch import (\n"
+        "    Matcher, ClassicPipeline, ModernMatcher, ModernPipeline, ModernParams)\n"
+        "assert len(names) >= 20, names\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'stereomatching_tpu' or m.startswith('stereomatching_tpu.'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("jax_params", [
+    StereoParams(),
+    StereoParams(threshold=0.3, square_width=7, times=4, lines=3, num_shifts=16,
+                 mode=BoundaryMode.GHOST, edge_rule="exact"),
+    ModernParams(),
+    ModernParams(num_disparities=48, window=5, lr_max_diff=2, fill_iterations=3,
+                 fill_mode="background", scales=2, coarse_weight=2, cost="census",
+                 census_window=3, aggregation="sgm", sgm_p1=4, sgm_p2=50,
+                 sgm_directions=8, median_filter=True, uniqueness=True),
+])
+def test_params_from_jax_round_trip(jax_params):
+    """The JAX package's params cross into the port's classes with every
+    field kept, and back through JSON."""
+    port = interop.params_from_jax(jax_params)
+    cls = PortStereoParams if isinstance(jax_params, StereoParams) else PortModernParams
+    assert type(port) is cls
+    assert port.to_json() == jax_params.to_json()
+    assert type(jax_params).from_json(port.to_json()) == jax_params
+    assert cls.from_json(port.to_json()) == port
+    if cls is PortStereoParams:
+        assert port.mode == jax_params.mode and port.half == jax_params.half
+    with pytest.raises(TypeError):
+        interop.params_from_jax({"num_shifts": 8})
 
 
 def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
@@ -184,10 +216,14 @@ def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         Matcher(device="cuda")
+    with pytest.raises(RuntimeError):
+        ModernMatcher(PortModernParams(aggregation="sgm", cost="census"), device="cuda")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     import torch.utils.cpp_extension as cpp_ext
 
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
-    with pytest.raises(RuntimeError, match="nvcc"):
-        build.build("match_score_edges")
+    for name in ("match_score_edges", "sgm_volume", "sgm_directional", "sgm_tail",
+                 "fill_invalid"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build.build(name)
     assert not (tmp_path / "build").exists() or not os.listdir(tmp_path / "build")

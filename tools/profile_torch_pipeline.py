@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's classic pipeline on one
-NVIDIA GPU, at the headline shape: ghost mode, exact rule, 1024x1024,
-64 shifts.
+"""Where the time goes in the PyTorch/CUDA port on one NVIDIA GPU, at the
+bench shapes: the classic pipeline (ghost mode, exact rule, 1024x1024,
+64 shifts) or the SGM route (census, 4 paths, 1024x1024, D=64).
 
-    python3 tools/profile_torch_pipeline.py
+    python3 tools/profile_torch_pipeline.py                  # classic
+    python3 tools/profile_torch_pipeline.py --pipeline sgm   # SGM route
 
+Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
 reading:
 
@@ -19,11 +21,20 @@ reading:
   the split of one run into host u8->f32, host-to-device copy, pipeline
   and device-to-host copy + numpy, each step synchronised.
 
+SGM (``--pipeline sgm``): the same three readings for ``ModernPipeline``
+at batch 1, 8 and 32, the profiler over 3 batches of 32 (bench.py's SGM
+batch), a split of one batch-32 forward into its stages (census
+transform, K3 volume, K4 paths, K5 tail, the torch LR check, K6 fill),
+each timed with CUDA events, and ``ModernMatcher`` at batch 8 split into
+host pixel checks, host-to-device copy (uint8), pipeline (with the
+widening to int32) and device-to-host copy + numpy.
+
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -60,24 +71,148 @@ def busy_share(intervals) -> tuple[float, float]:
     return busy, intervals[-1][1] - intervals[0][0]
 
 
-def main() -> None:
-    import numpy as np
-    import torch
+def profile_kernels(run, label: str) -> None:
+    """Print device time per kernel name and the busy share of ``run()``
+    (which ends in a synchronise) under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA device")
-    sys.path.insert(0, str(ROOT))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        sys.exit("the profiler recorded no device activity")
+    per_name: dict[str, list[float]] = {}
+    for e in kernels:
+        per_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    total = sum(sum(v) for v in per_name.values())
+    print(f"[profile {label}] device time {total / 1e3:.3f} ms", flush=True)
+    for name, ts in sorted(per_name.items(), key=lambda kv: -sum(kv[1])):
+        print(f"  {sum(ts) / 1e3:9.3f} ms {100 * sum(ts) / total:6.2f}% "
+              f"{len(ts):5d} x {sum(ts) / len(ts):9.3f} us  {name[:90]}")
+    busy, span = busy_share([(e.time_range.start, e.time_range.end) for e in kernels])
+    print(f"[busy] device busy {100 * busy / span:.1f}% of a {span / 1e3:.3f} ms "
+          f"device span", flush=True)
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def main_sgm() -> None:
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import ModernParams
+    from stereomatching_tpu_torch.interop import artifacts_to_numpy
+    from stereomatching_tpu_torch.models import modern
+    from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_sgm
+    from stereomatching_tpu_torch.serving import ModernMatcher
+
+    smi = card()
+    dev = torch.device("cuda", 0)
+    n = SIZE
+    params = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census")
+    pipe = modern.ModernPipeline(params)
+    rng = np.random.default_rng(SEED)
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"SGM census, 4 paths, {n}x{n}, D={SHIFTS}, random u8 pairs", flush=True)
+
+    def batch_u8(b):
+        return (rng.integers(0, 256, (b, n, n), dtype=np.uint8),
+                rng.integers(0, 256, (b, n, n), dtype=np.uint8))
+
+    def to_dev(u8):
+        return torch.from_numpy(u8).to(dev).to(torch.int32)
+
+    for b in (1, 8, 32):
+        lt, rt = (to_dev(x) for x in batch_u8(b))
+        pipe(lt, rt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reps = [event_ms(lambda: pipe(lt, rt), 5 if b < 32 else 3) / b for _ in range(5)]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        print(f"[batch {b}] device-resident ms/pair, 5 repeats: "
+              f"{', '.join(f'{r:.4f}' for r in reps)}; peak device memory "
+              f"{peak:.1f} MiB", flush=True)
+        del lt, rt
+
+    lt, rt = (to_dev(x) for x in batch_u8(32))
+
+    def three():
+        for _ in range(3):
+            pipe(lt, rt)
+        torch.cuda.synchronize()
+
+    three()
+    profile_kernels(three, "batch 32 x3")
+
+    # The route's stages, in modern._sgm_forward's order, each timed alone.
+    st, odt = modern._sgm_storage_dtype(params), modern._sgm_out_dtype(params)
+    codes = [costvolume.census_transform(x).contiguous() for x in (lt, rt)]
+    vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", st)
+    agg = fused_sgm.sgm_aggregate_paths(vol, params.sgm_p1, params.sgm_p2, odt)
+    disp, sub, cost, dr = fused_sgm.sgm_tail(agg)
+    valid = costvolume.lr_consistency(disp, dr, params.lr_max_diff, SHIFTS)
+    stages = {
+        "census transform (torch)": lambda: [costvolume.census_transform(x) for x in (lt, rt)],
+        "K3 sgm_volume": lambda: fused_sgm.sgm_volume(*codes, SHIFTS, "census", st),
+        "K4 sgm_directional x4": lambda: fused_sgm.sgm_aggregate_paths(
+            vol, params.sgm_p1, params.sgm_p2, odt),
+        "K5 sgm_tail": lambda: fused_sgm.sgm_tail(agg),
+        "LR check (torch)": lambda: costvolume.lr_consistency(disp, dr, params.lr_max_diff,
+                                                              SHIFTS),
+        "K6 fill_invalid x16": lambda: fused_diffusion.fill_invalid(
+            sub, valid, params.fill_iterations),
+    }
+    times = {k: event_ms(fn, 3) for k, fn in stages.items()}
+    whole = event_ms(lambda: pipe(lt, rt), 3)
+    print(f"[stages batch 32] forward {whole:.3f} ms; " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / whole:.1f}%)" for k, v in times.items()), flush=True)
+    del vol, agg, codes, lt, rt
+
+    matcher = ModernMatcher(params, device=dev)
+    lu, ru = batch_u8(8)
+    matcher(lu, ru)
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        matcher(lu, ru)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    clock = time.perf_counter
+    t0 = clock()
+    lp, rp = matcher._to_pixels(lu), matcher._to_pixels(ru)
+    t1 = clock()
+    lt, rt = torch.from_numpy(lp).to(dev), torch.from_numpy(rp).to(dev)
+    torch.cuda.synchronize()
+    t2 = clock()
+    out = matcher.pipeline(lt.to(torch.int32), rt.to(torch.int32))
+    torch.cuda.synchronize()
+    t3 = clock()
+    artifacts_to_numpy(out)
+    t4 = clock()
+    whole = (t4 - t0) * 1e3
+    parts = {"host pixel checks": t1 - t0, "H2D (uint8)": t2 - t1, "pipeline": t3 - t2,
+             "D2H + numpy": t4 - t3}
+    print(f"[ModernMatcher batch 8] {', '.join(f'{r:.3f}' for r in runs)} ms; split of "
+          f"one {whole:.3f} ms run: " + ", ".join(
+              f"{k} {v * 1e3:.3f} ms ({100 * v * 1e3 / whole:.1f}%)"
+              for k, v in parts.items()), flush=True)
+
+
+def main_classic() -> None:
+    import numpy as np
+    import torch
+
     from stereomatching_tpu_torch import BoundaryMode, StereoParams
     from stereomatching_tpu_torch.models.classic import ClassicPipeline
     from stereomatching_tpu_torch.interop import artifacts_to_numpy
     from stereomatching_tpu_torch.serving import Matcher
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     dev = torch.device("cuda", 0)
     n = SIZE
     params = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
@@ -106,26 +241,14 @@ def main() -> None:
         del lt, rt
 
     lt, rt = (to_dev(x) for x in batch_u8(8))
-    pipe(lt, rt)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def three():
         for _ in range(3):
             pipe(lt, rt)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        sys.exit("the profiler recorded no device activity")
-    per_name: dict[str, list[float]] = {}
-    for e in kernels:
-        per_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    total = sum(sum(v) for v in per_name.values())
-    print(f"[profile batch 8 x3] device time {total / 1e3:.3f} ms", flush=True)
-    for name, ts in sorted(per_name.items(), key=lambda kv: -sum(kv[1])):
-        print(f"  {sum(ts) / 1e3:9.3f} ms {100 * sum(ts) / total:6.2f}% "
-              f"{len(ts):5d} x {sum(ts) / len(ts):9.3f} us  {name[:90]}")
-    busy, span = busy_share([(e.time_range.start, e.time_range.end) for e in kernels])
-    print(f"[busy] device busy {100 * busy / span:.1f}% of a {span / 1e3:.3f} ms "
-          f"device span", flush=True)
+
+    three()
+    profile_kernels(three, "batch 8 x3")
 
     matcher = Matcher(params, device=dev)
     lu, ru = batch_u8(8)
@@ -154,6 +277,21 @@ def main() -> None:
           f"one {whole:.3f} ms run: " + ", ".join(
               f"{k} {v * 1e3:.3f} ms ({100 * v * 1e3 / whole:.1f}%)"
               for k, v in parts.items()), flush=True)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--pipeline", choices=("classic", "sgm"), default="classic")
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    if args.pipeline == "sgm":
+        main_sgm()
+    else:
+        main_classic()
 
 
 if __name__ == "__main__":
