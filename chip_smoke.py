@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stereomatching_tpu_torch``) on one
-NVIDIA GPU: builds the six kernels from ``csrc/``, holds each against its
+NVIDIA GPU: builds the seven kernels from ``csrc/``, holds each against its
 plain torch version on the card, drives the classic pipeline through
-``Matcher`` and the SGM route through ``ModernMatcher`` at 1024x1024 with
-64 shifts / disparities, and times kernel vs plain paths.
+``Matcher`` and the modern pipeline's three routes through
+``ModernMatcher`` (4-path SGM, the box default, the 8-direction quality
+stack) at 1024x1024 with 64 shifts / disparities, and times kernel vs
+plain paths.
 
     python3 chip_smoke.py
 
 Phases (one line each): device, build, K1 vs plain, K2 vs plain, the
-classic slice, classic times, K3-K6 vs plain, the SGM slice, SGM times.
+classic slice, classic times, K3-K6 vs plain, the SGM slice, SGM times,
+K7 vs plain, K4's diagonals vs plain, the box slice, the 8-direction
+slice, box and 8-direction times.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -40,6 +44,11 @@ SGM_BENCH_BATCH = 32  # bench.py's SGM line runs batch 32
 # route is exact, so every run reads the same shares: 99.9882% on the
 # worst of the four on an H100, floored here.
 SGM_TRUTH_SHARE = 0.9998
+# The same for the box route (SAD, window 9; the margin widened by the
+# window's half) and the 8-direction quality stack: 100.0000% on all four
+# and 99.9935% on the worst of the four on an H100, floored here.
+BOX_TRUTH_SHARE = 0.9999
+SGM8_TRUTH_SHARE = 0.9999
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet and Hopper
 # white paper): 3.35 TB/s of HBM3; 64 INT32 lanes per SM x 132 SMs x
@@ -173,7 +182,8 @@ def main() -> None:
     from stereomatching_tpu_torch import BoundaryMode, ModernParams, StereoParams
     from stereomatching_tpu_torch.models import modern
     from stereomatching_tpu_torch.models.classic import ClassicPipeline
-    from stereomatching_tpu_torch.ops import costvolume, fused, fused_diffusion, fused_sgm, sgm
+    from stereomatching_tpu_torch.ops import (
+        costvolume, fused, fused_diffusion, fused_modern, fused_sgm, sgm)
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
     from stereomatching_tpu_torch.utils.build import build_all
 
@@ -186,17 +196,18 @@ def main() -> None:
     print(f"[1 device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # Phase 2: build all six kernels from the checkout's sources, one nvcc
+    # Phase 2: build all seven kernels from the checkout's sources, one nvcc
     # per source, all started together.
     t0 = time.perf_counter()
     sources = ["match_score_edges", "fill_web_holes", "sgm_volume", "sgm_directional",
-               "sgm_tail", "fill_invalid"]
+               "sgm_tail", "fill_invalid", "disparity"]
     build_all(sources)
     fused._lib()
     fused_diffusion._lib("fill_web_holes")
     fused_diffusion._lib("fill_invalid")
     for name in ("sgm_volume", "sgm_directional", "sgm_tail"):
         fused_sgm._lib(name)
+    fused_modern._lib()
     print(f"[2 build] {', '.join(s + '.cu' for s in sources)} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -460,13 +471,170 @@ def main() -> None:
                       for k, (a, b) in ms.items())
           + f" (per batch of {BATCH})", flush=True)
 
+    del big, pipe
+
+    # Phase 10: K7 against its plain version at 4x1024x1024, D=64: SAD with
+    # window 9 and census with window 5, each for both reference views;
+    # then SAD windows 31 (both views staged in shared memory) and 101 (read
+    # through L1) on one pair.  Disparity, subpixel and cost bitwise.
+    k7_err, notes = 0, []
+    for cost, window, n in (("sad", 9, 4), ("census", 5, 4), ("sad", 31, 1), ("sad", 101, 1)):
+        p = ModernParams(num_disparities=SHIFTS, cost=cost, window=window)
+        pix = [torch.from_numpy(rand_u8(n, SIZE, SIZE)).to(dev).to(torch.int32)
+               for _ in range(2)]
+        codes = [costvolume.census_transform(x).contiguous() for x in pix] if cost == "census" else pix
+        for reference in ("left", "right"):
+            got = fused_modern.disparity(*codes, p, reference)
+            ref = fused_modern.disparity_reference(*codes, p, reference)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("disparity", "subpixel", "cost"), got, ref):
+                err = max_abs_diff(a, b)
+                k7_err = max(k7_err, err)
+                check(same(a, b), f"K7 {cost} window {window} {reference} {what} differs "
+                      f"from plain (max |d| {err})")
+        notes.append(f"{cost} window {window} x{n} "
+                     f"({'staged' if fused_modern.staged(p) else 'through L1'})")
+    del pix, codes, got, ref
+    print(f"[10 K7] {SIZE}x{SIZE}, D={SHIFTS}, both reference views: disparity, subpixel, "
+          f"cost == plain bitwise ({'; '.join(notes)}; max |d| {k7_err})", flush=True)
+
+    # Phase 11: K4's four diagonal paths and the 8-path sum against their
+    # plain versions at 4x1024x1024, D=64, census (int8) and SAD (int16)
+    # volumes into an int16 aggregate.
+    notes = []
+    for cost, vdtype in (("census", torch.int8), ("sad", torch.int16)):
+        pix = [torch.from_numpy(rand_u8(4, SIZE, SIZE)).to(dev).to(torch.int32)
+               for _ in range(2)]
+        codes = [costvolume.census_transform(x) for x in pix] if cost == "census" else pix
+        vol = fused_sgm.sgm_volume(*codes, SHIFTS, cost, vdtype)
+        for direction, reverse in sgm.DIAG_PATHS:
+            agg = torch.empty(vol.shape, dtype=torch.int16, device=dev)
+            fused_sgm.sgm_directional(vol, agg, 8, 96, direction, reverse, accumulate=False)
+            hold("sgm_directional", agg.to(torch.int32),
+                 fused_sgm.sgm_directional_reference(vol, 8, 96, direction, reverse),
+                 f"{cost} diagonal path (direction={direction}, reverse={reverse})")
+        agg = fused_sgm.sgm_aggregate_paths(vol, 8, 96, torch.int16, directions=8)
+        hold("sgm_directional", agg, sgm.sgm_aggregate(vol, 8, 96, directions=8).to(torch.int16),
+             f"{cost} 8-path sum")
+        torch.cuda.synchronize()
+        notes.append(f"{cost}: {str(vdtype).split('.')[-1]} volume")
+        del vol, agg, pix, codes
+    print(f"[11 K4 diagonals] 4x{SIZE}x{SIZE}, D={SHIFTS}: each diagonal path and the 8-path "
+          f"sum == plain bitwise ({'; '.join(notes)}; int16 aggregate; max |d| "
+          f"{errs['sgm_directional']})", flush=True)
+
+    # Phases 12 and 13: the box route (ModernMatcher's default params) and
+    # the 8-direction quality stack through ModernMatcher on the SGM slice's
+    # batch (6 shifted textures, 2 random), every counter set to 0 before
+    # each and read after it.
+    all_wrappers = {"disparity": fused_modern.disparity, **sgm_wrappers}
+
+    def drive(matcher, params, keys, truth_floor, margin, label):
+        for fn in all_wrappers.values():
+            fn.launches = 0
+        out = matcher(left_u8, right_u8)
+        counts = {name: fn.launches for name, fn in all_wrappers.items()}
+        plain = {k: v.cpu() for k, v in modern.modern_forward_reference(lt, rt, params).items()}
+        check(sorted(out) == sorted(keys), f"{label} output keys {sorted(out)}")
+        for k in keys:
+            check(same(torch.from_numpy(out[k]), plain[k]),
+                  f"{label} plane {k} differs from the plain pipeline")
+            check(out[k].shape == (BATCH, SIZE, SIZE), f"{label} {k} shape {out[k].shape}")
+        check(out["disparity"].min() >= 0 and out["disparity"].max() < SHIFTS,
+              f"{label} disparity out of 0..D-1")
+        check(all(np.isfinite(out[k]).all() for k in keys if out[k].dtype == np.float32),
+              f"non-finite {label} float plane")
+        check(np.array_equal(out["filled"][out["valid"]], out["subpixel"][out["valid"]]),
+              f"{label}: filled differs from subpixel on LR-valid pixels")
+        interior = region_interiors(SIZE, margin)
+        truth = [float((out["disparity"][i] == scenes[i][2])[interior].mean()) for i in range(4)]
+        for i, hit in enumerate(truth):
+            check(hit >= truth_floor, f"{label} scene {i}: true disparity on {hit:.4%} of interiors")
+        return out, counts, truth
+
+    bparams = ModernParams(num_disparities=SHIFTS)
+    bmatcher = ModernMatcher(device="cuda")
+    check(bmatcher.params == bparams, f"ModernMatcher() params {bmatcher.params}")
+    out, box_counts, truth = drive(bmatcher, bparams, keys, BOX_TRUTH_SHARE,
+                                   SHIFTS + bparams.window // 2, "box slice")
+    want = {"disparity": 2, "sgm_volume": 0, "sgm_directional": 0, "sgm_tail": 0,
+            "fill_invalid": 16}
+    check(box_counts == want, f"box slice kernel launches {box_counts}, want {want}")
+    launches["disparity"] = box_counts["disparity"]
+    print(f"[12 box slice] ModernMatcher() = (SAD, window 9, D={SHIFTS}, diffusion fill) on "
+          f"{BATCH}x{SIZE}x{SIZE} (6 shifted textures, 2 random): {len(out)} planes == plain "
+          f"pipeline bitwise; true disparity on {', '.join(f'{h:.4%}' for h in truth)} of the "
+          f"region interiors of the fine textures; LR-valid {float(out['valid'].mean()):.2%}; "
+          f"kernel launches {box_counts}", flush=True)
+
+    qparams = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census",
+                           sgm_directions=8, median_filter=True, uniqueness=True)
+    qmatcher = ModernMatcher(qparams, device="cuda")
+    out, q_counts, truth = drive(qmatcher, qparams, keys + ["uniqueness"], SGM8_TRUTH_SHARE,
+                                 SHIFTS, "8-direction slice")
+    want = {"disparity": 0, "sgm_volume": 1, "sgm_directional": 8, "sgm_tail": 1,
+            "fill_invalid": 16}
+    check(q_counts == want, f"8-direction slice kernel launches {q_counts}, want {want}")
+    check((out["uniqueness"] >= 1.0).all(), "uniqueness below 1")
+    print(f"[13 8-direction slice] ModernMatcher(census, 8 paths, median, uniqueness, "
+          f"D={SHIFTS}) on {BATCH}x{SIZE}x{SIZE} (same batch): {len(out)} planes == plain "
+          f"pipeline bitwise; true disparity on {', '.join(f'{h:.4%}' for h in truth)} of the "
+          f"region interiors of the fine textures; LR-valid {float(out['valid'].mean()):.2%}; "
+          f"kernel launches {q_counts}", flush=True)
+    del out
+
+    # Phase 14: box and 8-direction times.  K7 per launch (one reference
+    # view of the batch of 8) and K4's 8-launch forward on the quality
+    # stack's batch-8 volume, each against its plain version; the box
+    # pipeline device-resident at batch 8 and 32, the 8-direction pipeline
+    # at batch 32 with its peak memory, both plain at batch 8.
+    k7_ms = cuda_time_ms(lambda: fused_modern.disparity(lt, rt, bparams, "left"), 5)
+    k7_plain_ms = cuda_time_ms(lambda: fused_modern.disparity_reference(lt, rt, bparams, "left"), 1)
+    codes = [costvolume.census_transform(x).contiguous() for x in (lt, rt)]
+    qst, qodt = modern._sgm_storage_dtype(qparams), modern._sgm_out_dtype(qparams)
+    vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", qst)
+    k4_8_ms = cuda_time_ms(lambda: fused_sgm.sgm_aggregate_paths(vol, 8, 96, qodt, 8), 3)
+    k4_8_plain_ms = cuda_time_ms(lambda: sgm.sgm_aggregate(vol, 8, 96, 8).to(qodt), 1)
+    del vol, codes
+    bpipe, qpipe = modern.ModernPipeline(bparams), modern.ModernPipeline(qparams)
+    box8_ms = cuda_time_ms(lambda: bpipe(lt, rt), 5) / BATCH
+    box_plain_ms = cuda_time_ms(lambda: modern.modern_forward_reference(lt, rt, bparams), 1) / BATCH
+    sgm8_plain_ms = cuda_time_ms(
+        lambda: modern.modern_forward_reference(lt, rt, qparams), 1) / BATCH
+    big = [torch.from_numpy(rand_u8(SGM_BENCH_BATCH, SIZE, SIZE)).to(dev).to(torch.int32)
+           for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    box32_ms = cuda_time_ms(lambda: bpipe(*big), 3) / SGM_BENCH_BATCH
+    box_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    sgm8_ms = cuda_time_ms(lambda: qpipe(*big), 3) / SGM_BENCH_BATCH
+    sgm8_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # K7 (one launch, one view of 8 pairs): two int32 planes in, three
+    # 4-byte planes out; per pixel and d ~12 int ops (cost 2, the two
+    # running box sums 4, the argmin carries 6).  K4 x 8: the int8 volume
+    # in, the int16 aggregate out; ~9 int ops per element and path.
+    k7_bound = bound(20 * npix, 12 * npix * SHIFTS, INT32_OPS_PER_S)
+    qvb = torch.tensor([], dtype=qst).element_size()
+    qab = torch.tensor([], dtype=qodt).element_size()
+    k4_8_bound = bound((qvb + qab) * nvox, 8 * 9 * nvox, INT32_OPS_PER_S)
+    print(f"[14 box and 8-direction times] {smi}: box pipeline {box8_ms:.4f} ms/pair with "
+          f"kernels at batch {BATCH}, {box32_ms:.4f} at batch {SGM_BENCH_BATCH} "
+          f"({1e3 / box32_ms:.1f} pairs/s, peak {box_peak:.2f} GiB), plain {box_plain_ms:.4f} "
+          f"ms/pair (batch {BATCH}); 8-direction pipeline {sgm8_ms:.4f} ms/pair with kernels at "
+          f"batch {SGM_BENCH_BATCH} ({1e3 / sgm8_ms:.1f} pairs/s, peak {sgm8_peak:.2f} GiB), plain "
+          f"{sgm8_plain_ms:.4f} ms/pair (batch {BATCH}); disparity {k7_ms:.4f} ms vs plain "
+          f"{k7_plain_ms:.4f} ms (bound {k7_bound[0]:.4f}, one view of {BATCH} pairs); "
+          f"sgm_directional x 8 {k4_8_ms:.4f} ms vs plain {k4_8_plain_ms:.4f} ms (bound "
+          f"{k4_8_bound[0]:.4f}, per batch of {BATCH})", flush=True)
+
     src = "stereomatching_tpu_torch/csrc/"
     rows = [
         ("match_score_edges", "match_score_edges.cu", "stereomatching_tpu/ops/fused.py:1044",
          k1_err, k1_ms, k1_plain_ms, k1_bound),
         ("fill_web_holes_range", "fill_web_holes.cu",
          "stereomatching_tpu/ops/fused_diffusion.py:344", k2_err, k2_ms, k2_plain_ms, k2_bound),
-        ("sgm_volume", "sgm_volume.cu", "stereomatching_tpu/ops/fused_sgm.py:784",
+        ("sgm_volume", "sgm_volume.cu",
+         "stereomatching_tpu/ops/fused_sgm.py:784, stereomatching_tpu/ops/fused_sgm.py:884",
          errs["sgm_volume"], *ms["sgm_volume"], bounds["sgm_volume"]),
         ("sgm_directional", "sgm_directional.cu", "stereomatching_tpu/ops/fused_sgm.py:337",
          errs["sgm_directional"], *ms["sgm_directional"], bounds["sgm_directional"]),
@@ -474,13 +642,20 @@ def main() -> None:
          errs["sgm_tail"], *ms["sgm_tail"], bounds["sgm_tail"]),
         ("fill_invalid", "fill_invalid.cu", "stereomatching_tpu/ops/fused_diffusion.py:286",
          errs["fill_invalid"], *ms["fill_invalid"], bounds["fill_invalid"]),
+        ("disparity", "disparity.cu", "stereomatching_tpu/ops/fused_modern.py:232",
+         k7_err, k7_ms, k7_plain_ms, k7_bound),
     ]
-    print(json.dumps({"kernels": [
+    table = [
         {"name": name, "route": "cuda", "source": src + cu, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err, "ms": kms, "plain_ms": pms,
          "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
         for name, cu, replaces, err, kms, pms, b in rows
-    ]}))
+    ]
+    # The 4-path forward's numbers above; the 8-path forward's beside them.
+    table[3].update({"launches_8dir": q_counts["sgm_directional"], "ms_8dir": k4_8_ms,
+                     "plain_ms_8dir": k4_8_plain_ms, "bound_ms_8dir": k4_8_bound[0],
+                     "bound_by_8dir": k4_8_bound[1]})
+    print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,12 +9,14 @@ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use:
   ``ops.fused.match_score_edges`` (edges + match + box score + argmax)
   and ``ops.fused_diffusion.fill_web_holes_range`` (hole-filling steps +
   per-image min/max);
-* SGM route of the modern pipeline (``models/modern.py``,
-  ``ModernMatcher``): ``ops.fused_sgm.sgm_volume`` (census / SAD cost
-  volume), ``ops.fused_sgm.sgm_directional`` (one SGM path, four per
-  call), ``ops.fused_sgm.sgm_tail`` (argmin, sub-pixel, right view,
-  second best) and ``ops.fused_diffusion.fill_invalid`` (validity-aware
-  hole fill).
+* modern pipeline (``models/modern.py``, ``ModernMatcher``) at
+  ``scales=1``: on the box route (the default) ``ops.fused_modern.disparity``
+  (per-pixel cost + window sum + argmin + sub-pixel, twice per forward);
+  on the SGM route ``ops.fused_sgm.sgm_volume`` (census / SAD cost
+  volume), ``ops.fused_sgm.sgm_directional`` (one SGM path: four per call
+  with 4 directions, eight with the diagonals) and ``ops.fused_sgm.sgm_tail``
+  (argmin, sub-pixel, right view, second best); on both
+  ``ops.fused_diffusion.fill_invalid`` (validity-aware hole fill).
 
 Each kernel wrapper runs its plain torch version on CPU tensors and the
 kernel on CUDA tensors (no fallback).  The port owns its parameters

@@ -1,19 +1,25 @@
 // K4: one SGM path recurrence, added into the aggregate, for sm_90a.
 //
 // Replaces the Pallas kernel stereomatching_tpu/ops/fused_sgm.py:337
-// sgm_directional_pallas (body _kernel, :83; _step_math, _min_over_d),
-// which aggregate_from_scan_major (:1249) drives once per path.
-// Semantics (ops/sgm.py _directional): along one scan line of the cost
-// volume C [B, H, W, D] (a row for the horizontal paths, a column for the
-// vertical ones, walked forward or in reverse),
+// sgm_directional_pallas (body _kernel, :83; _step_math, _min_over_d; the
+// diagonals through lane_shift +-1, shift_carry :174-185), which
+// aggregate_from_scan_major (:1249) drives once per path, 4 or 8 times.
+// Semantics (ops/sgm.py _directional, _directional_diag): along one scan
+// line of the cost volume C [B, H, W, D], walked forward or in reverse,
 //     L[0] = C[0]
 //     L[s, d] = C[s, d] + min(L[s-1, d], min(L[s-1, d-1], L[s-1, d+1]) + P1,
 //                             m + P2) - m,        m = min_d' L[s-1, d'],
-// with L[s-1, -1] = L[s-1, D] = 2^28.  The kernel writes agg = L
-// (accumulate = 0) or agg += L (accumulate = 1); four launches (lr, rl, tb,
-// bt) give the 4-path sum.  The arithmetic is int32; C is stored int8,
-// int16 or int32 and the aggregate int16 or int32 (the caller's bounds keep
-// every value exact).
+// with L[s-1, -1] = L[s-1, D] = 2^28.  A line is a row (direction 0), a
+// column (1), or a diagonal stepping (y+1, x+1) (2) or (y+1, x-1) (3).  A
+// diagonal starts on row 0 or on its first (2) or last (3) column, so a
+// cell whose predecessor is outside the image starts its line (L = C, the
+// JAX package's all-_BIG carry).  The bottom-to-top diagonals are the
+// reverse walks of the same two families.  The kernel writes agg = L
+// (accumulate = 0) or agg += L (accumulate = 1); four launches (rows and
+// columns, both ways) give the 4-path sum, eight with the diagonals the
+// 8-path sum.  The arithmetic is int32; C is stored int8, int16 or int32
+// and the aggregate int16 or int32 (every L >= 0, so each partial sum is at
+// most the final one, which the caller's bounds keep exact).
 //
 // What bounds it on the H100: device memory, then latency.  Each step of a
 // line reads D costs and (when accumulating) D aggregate values and writes
@@ -24,15 +30,19 @@
 // Design (simple and right first): one warp per scan line, D across the
 // lanes, lane l holding the ND = ceil(D/32) consecutive disparities
 // d = l*ND .. l*ND+ND-1 (so a step's D values are one contiguous run of
-// memory, read and written coalesced).  The carry L[s-1] stays in
+// memory, read and written coalesced).  In the [B, H, W, D] layout every
+// line has a constant stride (D, W*D, (W+1)*D or (W-1)*D elements), so
+// rows, columns and diagonals share the walk; only each line's start and
+// length differ (a diagonal is 1 to min(H, W) steps long, so the corner
+// lines finish early).  The carry L[s-1] stays in
 // registers; d-1 and d+1 are register neighbours except at the lane edge,
 // which one __shfl_up_sync and one __shfl_down_sync bring over; m is one
 // __reduce_min_sync.  Lanes past D hold 2^28 and are never stored.  The
 // next step's costs (and aggregate values) are loaded before the current
 // step's arithmetic, so one step's load latency overlaps the previous
-// step's work.  Launches run in order on one stream, so the four paths
-// never race on the aggregate.  None of the TPU structure is carried over
-// (no scan-major relayouts, lane rolls, folds or chunk-major walks).
+// step's work.  Launches run in order on one stream, so the paths never
+// race on the aggregate.  None of the TPU structure is carried over (no
+// scan-major relayouts, lane rolls, folds or chunk-major walks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,17 +53,49 @@ constexpr int NT = 256;  // 8 warps, 8 lines per block
 constexpr int BIG = 1 << 28;
 constexpr unsigned FULL = 0xffffffffu;
 
+// Lines of one direction per image: rows, columns, or diagonals (one per
+// cell of row 0 and of the start column below it).
+__host__ __device__ inline long long lines_per_image(int dir, int H, int W) {
+  return dir == 0 ? H : dir == 1 ? W : (long long)W + H - 1;
+}
+
+// Start element, length and element stride of scan line `line` (image-major).
+__device__ __forceinline__ void line_geometry(long long line, int dir, int H,
+                                              int W, int D, long long& base,
+                                              int& len, long long& step) {
+  const long long n = lines_per_image(dir, H, W);
+  const long long img = (line / n) * H * W * D;
+  const int l = (int)(line % n);
+  int y0, x0;
+  if (dir == 0) {  // the row y = l
+    y0 = l; x0 = 0; len = W; step = D;
+  } else if (dir == 1) {  // the column x = l
+    y0 = 0; x0 = l; len = H; step = (long long)W * D;
+  } else {  // the diagonal from (0, l), or from (l - W + 1, first/last column)
+    const int dx = dir == 2 ? 1 : -1;
+    if (l < W) {
+      y0 = 0; x0 = l;
+    } else {
+      y0 = l - W + 1; x0 = dx > 0 ? 0 : W - 1;
+    }
+    len = min(H - y0, dx > 0 ? W - x0 : x0 + 1);
+    step = (long long)(W + dx) * D;
+  }
+  base = img + ((long long)y0 * W + x0) * D;
+}
+
 template <typename TV, typename TA, int ND>
 __global__ void __launch_bounds__(NT)
 directional_kernel(const TV* __restrict__ vol, TA* __restrict__ agg,
-                   long long n_lines, int len, long long inner,
-                   long long outer_stride, long long step, int D, int p1,
+                   long long n_lines, int dir, int H, int W, int D, int p1,
                    int p2, bool reverse, bool accumulate) {
   const long long line = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
   if (line >= n_lines) return;  // warp-uniform
   const int lane = threadIdx.x & 31;
   const int d0 = lane * ND;
-  const long long base = (line / inner) * outer_stride + (line % inner) * D;
+  long long base, step;
+  int len;
+  line_geometry(line, dir, H, W, D, base, len, step);
   const long long delta = reverse ? -step : step;
   long long pos = reverse ? base + (long long)(len - 1) * step : base;
 
@@ -107,40 +149,37 @@ directional_kernel(const TV* __restrict__ vol, TA* __restrict__ agg,
 }
 
 template <typename TV, typename TA, int ND>
-cudaError_t launch_nd(const void* vol, void* agg, long long n_lines, int len,
-                      long long inner, long long outer, long long step, int D,
-                      int p1, int p2, bool reverse, bool accumulate,
-                      cudaStream_t st) {
+cudaError_t launch_nd(const void* vol, void* agg, long long n_lines, int dir,
+                      int H, int W, int D, int p1, int p2, bool reverse,
+                      bool accumulate, cudaStream_t st) {
   const long long blocks = (n_lines + NT / 32 - 1) / (NT / 32);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   directional_kernel<TV, TA, ND><<<(unsigned)blocks, NT, 0, st>>>(
-      (const TV*)vol, (TA*)agg, n_lines, len, inner, outer, step, D, p1, p2,
-      reverse, accumulate);
+      (const TV*)vol, (TA*)agg, n_lines, dir, H, W, D, p1, p2, reverse,
+      accumulate);
   return cudaGetLastError();
 }
 
 template <typename TV, typename TA>
 cudaError_t launch(int nd, const void* vol, void* agg, long long n_lines,
-                   int len, long long inner, long long outer, long long step,
-                   int D, int p1, int p2, bool reverse, bool accumulate,
-                   cudaStream_t st) {
+                   int dir, int H, int W, int D, int p1, int p2, bool reverse,
+                   bool accumulate, cudaStream_t st) {
   switch (nd) {
-    case 1: return launch_nd<TV, TA, 1>(vol, agg, n_lines, len, inner, outer, step, D, p1, p2, reverse, accumulate, st);
-    case 2: return launch_nd<TV, TA, 2>(vol, agg, n_lines, len, inner, outer, step, D, p1, p2, reverse, accumulate, st);
-    case 4: return launch_nd<TV, TA, 4>(vol, agg, n_lines, len, inner, outer, step, D, p1, p2, reverse, accumulate, st);
-    case 8: return launch_nd<TV, TA, 8>(vol, agg, n_lines, len, inner, outer, step, D, p1, p2, reverse, accumulate, st);
+    case 1: return launch_nd<TV, TA, 1>(vol, agg, n_lines, dir, H, W, D, p1, p2, reverse, accumulate, st);
+    case 2: return launch_nd<TV, TA, 2>(vol, agg, n_lines, dir, H, W, D, p1, p2, reverse, accumulate, st);
+    case 4: return launch_nd<TV, TA, 4>(vol, agg, n_lines, dir, H, W, D, p1, p2, reverse, accumulate, st);
+    case 8: return launch_nd<TV, TA, 8>(vol, agg, n_lines, dir, H, W, D, p1, p2, reverse, accumulate, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename TV>
 cudaError_t launch_agg(int agg_bytes, int nd, const void* vol, void* agg,
-                       long long n_lines, int len, long long inner,
-                       long long outer, long long step, int D, int p1, int p2,
-                       bool reverse, bool accumulate, cudaStream_t st) {
+                       long long n_lines, int dir, int H, int W, int D, int p1,
+                       int p2, bool reverse, bool accumulate, cudaStream_t st) {
   switch (agg_bytes) {
-    case 2: return launch<TV, int16_t>(nd, vol, agg, n_lines, len, inner, outer, step, D, p1, p2, reverse, accumulate, st);
-    case 4: return launch<TV, int32_t>(nd, vol, agg, n_lines, len, inner, outer, step, D, p1, p2, reverse, accumulate, st);
+    case 2: return launch<TV, int16_t>(nd, vol, agg, n_lines, dir, H, W, D, p1, p2, reverse, accumulate, st);
+    case 4: return launch<TV, int32_t>(nd, vol, agg, n_lines, dir, H, W, D, p1, p2, reverse, accumulate, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -151,38 +190,25 @@ extern "C" {
 
 // vol: [B, H, W, D] of `vol_bytes` (1, 2, 4: int8, int16, int32).
 // agg: [B, H, W, D] of `agg_bytes` (2, 4: int16, int32), written
-// (accumulate = 0) or added to (accumulate = 1).  along_y: 0 walks rows
-// (x), 1 walks columns (y); reverse: 1 starts at the last index.
-// D <= 256.  Launches on `stream`; returns cudaGetLastError().
+// (accumulate = 0) or added to (accumulate = 1).  direction: 0 walks rows
+// (x), 1 columns (y), 2 the diagonals stepping (y+1, x+1), 3 those stepping
+// (y+1, x-1); reverse: 1 starts at each line's last cell.  D <= 256.
+// Launches on `stream`; returns cudaGetLastError().
 int sgm_directional(const void* vol, int vol_bytes, void* agg, int agg_bytes,
-                    int B, int H, int W, int D, int p1, int p2, int along_y,
+                    int B, int H, int W, int D, int p1, int p2, int direction,
                     int reverse, int accumulate, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || D < 1 || D > 256)
+  if (B < 1 || H < 1 || W < 1 || D < 1 || D > 256 || direction < 0 ||
+      direction > 3)
     return (int)cudaErrorInvalidValue;
   const int nd32 = (D + 31) / 32;
   const int nd = nd32 <= 1 ? 1 : nd32 <= 2 ? 2 : nd32 <= 4 ? 4 : 8;
-  const long long hwd = (long long)H * W * D;
-  long long n_lines, inner, outer, step;
-  int len;
-  if (along_y) {  // one line per (b, x), stepping down the rows
-    n_lines = (long long)B * W;
-    inner = W;
-    outer = hwd;
-    step = (long long)W * D;
-    len = H;
-  } else {  // one line per (b, y), stepping along the row
-    n_lines = (long long)B * H;
-    inner = 1;
-    outer = (long long)W * D;
-    step = D;
-    len = W;
-  }
+  const long long n_lines = (long long)B * lines_per_image(direction, H, W);
   cudaStream_t st = (cudaStream_t)stream;
   const bool rev = reverse != 0, acc = accumulate != 0;
   switch (vol_bytes) {
-    case 1: return (int)launch_agg<int8_t>(agg_bytes, nd, vol, agg, n_lines, len, inner, outer, step, D, p1, p2, rev, acc, st);
-    case 2: return (int)launch_agg<int16_t>(agg_bytes, nd, vol, agg, n_lines, len, inner, outer, step, D, p1, p2, rev, acc, st);
-    case 4: return (int)launch_agg<int32_t>(agg_bytes, nd, vol, agg, n_lines, len, inner, outer, step, D, p1, p2, rev, acc, st);
+    case 1: return (int)launch_agg<int8_t>(agg_bytes, nd, vol, agg, n_lines, direction, H, W, D, p1, p2, rev, acc, st);
+    case 2: return (int)launch_agg<int16_t>(agg_bytes, nd, vol, agg, n_lines, direction, H, W, D, p1, p2, rev, acc, st);
+    case 4: return (int)launch_agg<int32_t>(agg_bytes, nd, vol, agg, n_lines, direction, H, W, D, p1, p2, rev, acc, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,22 +1,28 @@
-"""The modern pipeline's SGM route (counterpart of
-``stereomatching_tpu/models/modern.py``, ``aggregation="sgm"``,
-``scales=1``): census or SAD per-pixel costs -> cost volume -> 4-path
-semi-global aggregation -> argmin + sub-pixel + right-view disparity
-(+ uniqueness) -> optional 3x3 median -> LR consistency -> hole fill.
+"""The modern pipeline (counterpart of
+``stereomatching_tpu/models/modern.py`` at ``scales=1``), two routes:
 
-Inputs are integer pixel planes 0..255, [H, W] or [B, H, W].  The
-volume, the paths, the tail and the diffusion fill run as
-``sgm_volume`` / ``sgm_directional`` / ``sgm_tail`` (``ops/fused_sgm.py``)
-and ``fill_invalid`` (``ops/fused_diffusion.py``): the CUDA kernels on
-CUDA tensors, their plain torch versions on CPU tensors.  The census
-transform, the uniqueness ratio, the median, the LR check and the
-background fill are torch ops on every device.
+* box (``aggregation="box"``, the default): for each reference view the
+  per-pixel SAD or census cost, its window sum and the first-minimum
+  argmin with parabola sub-pixel refine, fused in ``fused_modern.disparity``
+  (K7, twice per forward);
+* SGM (``aggregation="sgm"``): census or SAD per-pixel costs -> cost
+  volume -> 4- or 8-path semi-global aggregation -> argmin + sub-pixel +
+  right-view disparity (+ uniqueness).
 
-Storage: the volume and the aggregate take the narrowest integer type
-that holds every value (``_sgm_storage_dtype``, ``_sgm_out_dtype``);
+Both then take the optional 3x3 median, the LR consistency check and the
+hole fill.  Inputs are integer pixel planes 0..255, [H, W] or [B, H, W].
+The box disparity, the SGM volume, paths and tail, and the diffusion fill
+run as ``fused_modern.disparity``, ``sgm_volume`` / ``sgm_directional`` /
+``sgm_tail`` (``ops/fused_sgm.py``) and ``fill_invalid``
+(``ops/fused_diffusion.py``): the CUDA kernels on CUDA tensors, their
+plain torch versions on CPU tensors.  The census transform, the
+uniqueness ratio, the median, the LR check and the background fill are
+torch ops on every device.
+
+SGM storage: the volume and the aggregate take the narrowest integer
+type that holds every value (``_sgm_storage_dtype``, ``_sgm_out_dtype``);
 the outputs are the same bits whatever storage is chosen.  Not ported
-yet: ``aggregation="box"`` (Pallas K7), ``scales=2`` and
-``sgm_directions=8``.
+yet: ``scales=2``.
 """
 
 from __future__ import annotations
@@ -27,14 +33,17 @@ import torch
 from torch import nn
 
 from stereomatching_tpu_torch.config import ModernParams
-from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_sgm, sgm
+from stereomatching_tpu_torch.ops import (
+    costvolume, fused_diffusion, fused_modern, fused_sgm, sgm)
+from stereomatching_tpu_torch.ops.costvolume import DisparityResult
 
 Outputs = Dict[str, torch.Tensor]
 
 
 class _Route(NamedTuple):
-    """The four kernel-backed stages of the route."""
+    """The kernel-backed stages of the two routes."""
 
+    disparity: Callable
     volume: Callable
     aggregate: Callable
     tail: Callable
@@ -42,14 +51,17 @@ class _Route(NamedTuple):
 
 
 _KERNELS = _Route(
+    fused_modern.disparity,
     fused_sgm.sgm_volume,
     fused_sgm.sgm_aggregate_paths,
     fused_sgm.sgm_tail,
     fused_diffusion.fill_invalid,
 )
 _PLAIN = _Route(
+    fused_modern.disparity_reference,
     fused_sgm.sgm_volume_reference,
-    lambda vol, p1, p2, out_dtype: sgm.sgm_aggregate(vol, p1, p2).to(out_dtype),
+    lambda vol, p1, p2, out_dtype, directions: sgm.sgm_aggregate(
+        vol, p1, p2, directions).to(out_dtype),
     fused_sgm.sgm_tail_reference,
     fused_diffusion.fill_invalid_reference,
 )
@@ -126,37 +138,28 @@ def _fill(sub, valid, params: ModernParams, fill_invalid: Callable):
 
 
 def _check_supported(params: ModernParams) -> None:
-    if params.aggregation != "sgm":
-        raise NotImplementedError(
-            "the box route (aggregation='box', Pallas K7 disparity_pallas) "
-            "is a later slice of the port")
     if params.scales != 1:
         raise NotImplementedError(
             "scales=2 (multi-scale cost fusion, an XLA-only route in the "
             "JAX package) is a later slice of the port")
-    if params.sgm_directions != 4:
-        raise NotImplementedError(
-            "8-direction SGM (diagonal paths) is the next slice of the port")
 
 
-def _sgm_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
-    _check_supported(params)
+def _cost_inputs(left, right, params: ModernParams):
+    """int32 cost inputs of both images: the pixels for SAD, the census
+    codes for census."""
     codes = [x.to(torch.int32) for x in (left, right)]
     if params.cost == "census":
         codes = [costvolume.census_transform(x, params.census_window).contiguous()
                  for x in codes]
-    vol = route.volume(*codes, params.num_disparities, params.cost,
-                       _sgm_storage_dtype(params))
-    agg = route.aggregate(vol, params.sgm_p1, params.sgm_p2, _sgm_out_dtype(params))
-    del vol
-    outs = route.tail(agg, params.uniqueness)
-    del agg
-    disp, sub, cost, dr = outs[:4]
-    uniq = _uniqueness_ratio(outs[4], cost) if params.uniqueness else None
+    return codes
+
+
+def _finish(disp, sub, dr, cost, params: ModernParams, route: _Route) -> Outputs:
+    """The routes' shared tail: median, LR consistency, hole fill."""
     disp, sub, dr = _maybe_median(disp, sub, dr, params)
     valid = costvolume.lr_consistency(disp, dr, params.lr_max_diff,
                                       params.num_disparities)
-    out = {
+    return {
         "disparity": disp,
         "subpixel": sub,
         "disparity_right": dr,
@@ -164,9 +167,55 @@ def _sgm_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
         "filled": _fill(sub, valid, params, route.fill_invalid),
         "cost": cost,
     }
-    if uniq is not None:
-        out["uniqueness"] = uniq
+
+
+def _sgm_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
+    codes = _cost_inputs(left, right, params)
+    vol = route.volume(*codes, params.num_disparities, params.cost,
+                       _sgm_storage_dtype(params))
+    del codes
+    agg = route.aggregate(vol, params.sgm_p1, params.sgm_p2, _sgm_out_dtype(params),
+                          params.sgm_directions)
+    del vol
+    outs = route.tail(agg, params.uniqueness)
+    del agg
+    disp, sub, cost, dr = outs[:4]
+    out = _finish(disp, sub, dr, cost, params, route)
+    if params.uniqueness:
+        out["uniqueness"] = _uniqueness_ratio(outs[4], cost)
     return out
+
+
+def _one_view(codes, params: ModernParams, reference: str, route: _Route) -> DisparityResult:
+    ref, other = codes if reference == "left" else codes[::-1]
+    return route.disparity(ref, other, params, reference)
+
+
+def _box_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
+    codes = _cost_inputs(left, right, params)
+    dl = _one_view(codes, params, "left", route)
+    dr = _one_view(codes, params, "right", route)
+    return _finish(dl.disparity, dl.subpixel, dr.disparity, dl.cost, params, route)
+
+
+def disparity_one_view(
+    left: torch.Tensor, right: torch.Tensor, params: ModernParams, reference: str = "left"
+) -> DisparityResult:
+    """The box route's disparity for one reference view of integer pixel
+    planes [H, W] or [B, H, W]: the left reference matches L(x) against
+    R(x - d), the right one R(x) against L(x + d).  For census both images
+    go through the census transform first.  K7 on CUDA tensors, its plain
+    version on CPU tensors."""
+    _check_inputs(left, right)
+    _check_supported(params)
+    return _one_view(_cost_inputs(left, right, params), params, reference, _KERNELS)
+
+
+def _forward(left, right, params: ModernParams, route: _Route) -> Outputs:
+    _check_inputs(left, right)
+    _check_supported(params)
+    fwd = _sgm_forward if params.aggregation == "sgm" else _box_forward
+    return fwd(left, right, params, route)
 
 
 def _check_inputs(left: torch.Tensor, right: torch.Tensor) -> None:
@@ -179,27 +228,27 @@ def _check_inputs(left: torch.Tensor, right: torch.Tensor) -> None:
 
 
 def modern_forward(left: torch.Tensor, right: torch.Tensor, params: ModernParams) -> Outputs:
-    """The SGM route on integer pixel planes [H, W] or [B, H, W] ->
-    disparity (int32), subpixel (f32), disparity_right (int32), valid
-    (bool, LR-consistent), filled (f32), cost (int32 at the winner), and
+    """The modern pipeline (box or SGM route, per ``params.aggregation``)
+    on integer pixel planes [H, W] or [B, H, W] -> disparity (int32),
+    subpixel (f32), disparity_right (int32), valid (bool, LR-consistent),
+    filled (f32), cost (int32 at the winner), and on the SGM route
     uniqueness (f32) with ``params.uniqueness``; each [H, W] or
     [B, H, W] on the inputs' device."""
-    _check_inputs(left, right)
-    return _sgm_forward(left, right, params, _KERNELS)
+    return _forward(left, right, params, _KERNELS)
 
 
 def modern_forward_reference(
     left: torch.Tensor, right: torch.Tensor, params: ModernParams
 ) -> Outputs:
     """``modern_forward`` through the kernels' plain versions on any
-    device (the int32 aggregate of ``ops.sgm.sgm_aggregate``, cast to
-    the same storage): what the kernel route is held to on the card."""
-    _check_inputs(left, right)
-    return _sgm_forward(left, right, params, _PLAIN)
+    device (on the SGM route the int32 aggregate of
+    ``ops.sgm.sgm_aggregate``, cast to the same storage): what the kernel
+    route is held to on the card."""
+    return _forward(left, right, params, _PLAIN)
 
 
 class ModernPipeline(nn.Module):
-    """The modern pipeline (SGM route) as a module with no parameters:
+    """The modern pipeline (box or SGM route) as a module with no parameters:
     ``forward(left, right)`` takes integer pixels [H, W] or [B, H, W]
     and returns the output dict on the inputs' device."""
 

@@ -1,6 +1,7 @@
 """Cost-volume helpers of the modern pipeline (counterpart of
 ``stereomatching_tpu/ops/costvolume.py``): census transform, popcount,
-the first-minimum argmin with parabola sub-pixel refine, LR
+the first-minimum argmin with parabola sub-pixel refine, the box route's
+windowed disparity (``sad_disparity``, ``box_disparity``), LR
 consistency, the 3x3 median, and the two hole fills.
 
 Plain torch on every device.  All functions take [..., H, W] planes
@@ -15,6 +16,8 @@ from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from stereomatching_tpu_torch.ops.aggregate import box_sum_padded
 
 # Argmin sentinel (ops/costvolume._BIG).
 _BIG = 2**30
@@ -42,6 +45,21 @@ def _extend_left(img: torch.Tensor, n: int) -> torch.Tensor:
     prepended (the out-of-frame clamp of R(x-d))."""
     first = img[..., :1].expand(*img.shape[:-1], n)
     return torch.cat([first, img], dim=-1)
+
+
+def _extend_right(img: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., H, W] -> [..., H, W+n]: n copies of the last column appended
+    (the out-of-frame clamp of L(x+d))."""
+    last = img[..., -1:].expand(*img.shape[:-1], n)
+    return torch.cat([img, last], dim=-1)
+
+
+def _aggregate(cost: torch.Tensor, half: int) -> torch.Tensor:
+    """Zero-padded box sum of the per-pixel costs [..., H, W] over the
+    (2*half+1)^2 window -> int32 (window pixels outside the frame add 0)."""
+    if half == 0:
+        return cost.to(torch.int32)
+    return box_sum_padded(F.pad(cost, (half, half, half, half)), half)
 
 
 def census_transform(img: torch.Tensor, window: int = 5) -> torch.Tensor:
@@ -123,6 +141,49 @@ def argmin_subpixel_scan(
         subpixel=best_d.to(torch.float32) + offset,
         cost=best,
     )
+
+
+def box_disparity(
+    ref: torch.Tensor, other: torch.Tensor, num_disparities: int, window: int,
+    cost: str = "sad", reference: str = "left",
+) -> DisparityResult:
+    """Windowed disparity of one reference view from its cost inputs
+    [..., H, W] (intensities for SAD, census codes for census): for each
+    d the per-pixel cost against the matching view, edge-clamped in x
+    (left reference: other[max(x - d, 0)]; right: other[min(x + d, W-1)]),
+    box-summed with zero padding, then the first-minimum argmin and the
+    parabola.  The plain version of the box route's kernel."""
+    if cost not in ("sad", "census"):
+        raise ValueError("cost must be 'sad' or 'census'")
+    if reference not in ("left", "right"):
+        raise ValueError(f"reference must be 'left' or 'right', got {reference!r}")
+    half = window // 2
+    ref = ref.to(torch.int32)
+    w = ref.shape[-1]
+    if reference == "left":
+        ext = _extend_left(other.to(torch.int32), num_disparities)
+    else:
+        ext = _extend_right(other.to(torch.int32), num_disparities)
+
+    def cost_at(d: int) -> torch.Tensor:
+        o = num_disparities - d if reference == "left" else d
+        win = ext[..., o: o + w]
+        c = popcount32(ref ^ win) if cost == "census" else (ref - win).abs()
+        return _aggregate(c, half)
+
+    return argmin_subpixel_scan(cost_at, num_disparities)
+
+
+def sad_disparity(
+    left: torch.Tensor, right: torch.Tensor, num_disparities: int,
+    window: int = 9, reference: str = "left",
+) -> DisparityResult:
+    """Windowed-SAD disparity for one view of integer pixel planes
+    [..., H, W]: left reference matches L(x) against R(x-d), right
+    reference R(x) against L(x+d); out-of-frame columns replicate the
+    edge."""
+    ref, other = (left, right) if reference == "left" else (right, left)
+    return box_disparity(ref, other, num_disparities, window, "sad", reference)
 
 
 def lr_consistency(

@@ -3,9 +3,10 @@
 
 * ``sgm_volume`` (K3, ``csrc/sgm_volume.cu``): the per-pixel census or
   SAD cost volume [B, H, W, D];
-* ``sgm_directional`` (K4, ``csrc/sgm_directional.cu``): one SGM path,
-  written or added into the aggregate; ``sgm_aggregate_paths`` runs the
-  four paths of the 4-direction sum;
+* ``sgm_directional`` (K4, ``csrc/sgm_directional.cu``): one SGM path
+  (a row, column or diagonal walk), written or added into the aggregate;
+  ``sgm_aggregate_paths`` runs the four paths of the 4-direction sum or
+  the eight of the 8-direction sum;
 * ``sgm_tail`` (K5, ``csrc/sgm_tail.cu``): argmin, sub-pixel, winner
   cost, right-view disparity and (optionally) the second-best cost, in
   one pass over the aggregate.
@@ -135,30 +136,35 @@ sgm_volume.launches = 0
 
 
 def sgm_directional_reference(
-    vol: torch.Tensor, p1: int, p2: int, along_y: bool, reverse: bool
+    vol: torch.Tensor, p1: int, p2: int, direction: int, reverse: bool
 ) -> torch.Tensor:
     """Plain torch: one SGM path over vol [..., H, W, D] -> int32 L."""
-    return sgm.path(vol, p1, p2, along_y, reverse)
+    return sgm.path(vol, p1, p2, direction, reverse)
 
 
 def sgm_directional(
     vol: torch.Tensor, agg: torch.Tensor, p1: int, p2: int,
-    along_y: bool, reverse: bool, accumulate: bool,
+    direction: int, reverse: bool, accumulate: bool,
 ) -> torch.Tensor:
     """One SGM path over vol [..., H, W, D] (int8/int16/int32), written
     into ``agg`` (same shape, int16/int32) or, with ``accumulate``, added
-    to it.  Updates ``agg`` in place (the aggregate is the largest buffer
-    of the route, so the paths share it) and returns it.  The caller
-    keeps every value inside agg's dtype.  CPU tensors run the plain
-    version, CUDA tensors K4."""
+    to it.  ``direction`` is ``sgm.X`` (or False: along rows), ``sgm.Y``
+    (or True: along columns), ``sgm.DIAG_PLUS`` or ``sgm.DIAG_MINUS``
+    (the diagonals stepping (y+1, x+1) and (y+1, x-1)); ``reverse`` walks
+    each line from its last cell.  Updates ``agg`` in place (the
+    aggregate is the largest buffer of the route, so the paths share it)
+    and returns it.  The caller keeps every value inside agg's dtype.
+    CPU tensors run the plain version, CUDA tensors K4."""
     if vol.shape != agg.shape or vol.ndim not in (3, 4):
         raise ValueError(
             f"need equal [H, W, D] or [B, H, W, D] shapes, got "
             f"{tuple(vol.shape)} and {tuple(agg.shape)}")
     if vol.dtype not in _VOL_DTYPES or agg.dtype not in _AGG_DTYPES:
         raise ValueError(f"unsupported dtypes {vol.dtype} / {agg.dtype}")
+    if direction not in (sgm.X, sgm.Y, sgm.DIAG_PLUS, sgm.DIAG_MINUS):
+        raise ValueError(f"unknown direction {direction!r}")
     if _device_route(vol, agg):
-        path = sgm_directional_reference(vol, p1, p2, along_y, reverse)
+        path = sgm_directional_reference(vol, p1, p2, direction, reverse)
         if accumulate:
             agg += path.to(agg.dtype)
         else:
@@ -172,7 +178,7 @@ def sgm_directional(
     b, h, w = (vol.shape[:-1] if vol.ndim == 4 else (1, *vol.shape[:-1]))
     _launch("sgm_directional", vol.device, vol.data_ptr(), vol.element_size(),
             agg.data_ptr(), agg.element_size(), b, h, w, d, p1, p2,
-            int(along_y), int(reverse), int(accumulate))
+            int(direction), int(reverse), int(accumulate))
     sgm_directional.launches += 1
     return agg
 
@@ -181,15 +187,20 @@ sgm_directional.launches = 0
 
 
 def sgm_aggregate_paths(
-    vol: torch.Tensor, p1: int, p2: int, out_dtype: torch.dtype = torch.int32
+    vol: torch.Tensor, p1: int, p2: int, out_dtype: torch.dtype = torch.int32,
+    directions: int = 4,
 ) -> torch.Tensor:
-    """The 4-path SGM sum of vol [..., H, W, D] -> ``out_dtype``, same
-    shape: ``sgm_directional`` for lr (written), rl, tb and bt (added).
-    Equal to ``ops.sgm.sgm_aggregate(vol, p1, p2)`` in every value the
-    dtype holds."""
+    """The 4- or 8-path SGM sum of vol [..., H, W, D] -> ``out_dtype``,
+    same shape: ``sgm_directional`` for lr (written), rl, tb and bt
+    (added), then with ``directions=8`` the four diagonals (added).
+    Equal to ``ops.sgm.sgm_aggregate(vol, p1, p2, directions)`` in every
+    value the dtype holds."""
+    if directions not in (4, 8):
+        raise ValueError("directions must be 4 or 8")
+    paths = sgm.PATHS + (sgm.DIAG_PATHS if directions == 8 else ())
     agg = torch.empty(vol.shape, dtype=out_dtype, device=vol.device)
-    for i, (along_y, reverse) in enumerate(sgm.PATHS):
-        sgm_directional(vol, agg, p1, p2, along_y, reverse, accumulate=i > 0)
+    for i, (direction, reverse) in enumerate(paths):
+        sgm_directional(vol, agg, p1, p2, direction, reverse, accumulate=i > 0)
     return agg
 
 

@@ -7,10 +7,14 @@ Each path r accumulates
               + min( L_r(p-r, d), L_r(p-r, d±1) + P1, min_d' L_r(p-r, d') + P2 )
 
 with L = C at the path's first pixel and d±1 outside [0, D) padded with
-``_BIG``.  Volumes are [..., H, W, D] (d innermost, the JAX package's
-``hwd`` layout); all arithmetic is exact int32.  Plain torch: on the
-port's main route the paths and the tail run as the kernels of
-``ops/fused_sgm.py``, and these functions are their plain versions.
+``_BIG``.  A path runs along x (rows), along y (columns) or along one of
+the two diagonal families, stepping (y+1, x+1) or (y+1, x-1); each is
+walked forward or in reverse.  A diagonal cell whose predecessor lies
+outside the image starts its path (L = C).  Volumes are [..., H, W, D]
+(d innermost, the JAX package's ``hwd`` layout); all arithmetic is exact
+int32.  Plain torch: on the port's main route the paths and the tail run
+as the kernels of ``ops/fused_sgm.py``, and these functions are their
+plain versions.
 """
 
 from __future__ import annotations
@@ -22,8 +26,25 @@ from stereomatching_tpu_torch.ops.costvolume import argmin_subpixel_scan
 
 _BIG = 2**28
 
-# The four paths of the 4-direction sum: (along y, reverse).
-PATHS = ((False, False), (False, True), (True, False), (True, True))
+# Scan directions of a path (``False`` / ``True`` spell X / Y too).
+X, Y, DIAG_PLUS, DIAG_MINUS = 0, 1, 2, 3
+# The four paths of the 4-direction sum: (direction, reverse).
+PATHS = ((X, False), (X, True), (Y, False), (Y, True))
+# The four diagonal paths that 8 directions add, in the JAX package's
+# order: r = (1, 1), (1, -1), then the bottom-to-top (-1, -1) and (-1, 1),
+# the reverse walks of the same two line families.
+DIAG_PATHS = ((DIAG_PLUS, False), (DIAG_MINUS, False), (DIAG_PLUS, True),
+              (DIAG_MINUS, True))
+
+
+def _step(carry: torch.Tensor, cost: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
+    """One step of the recurrence: the predecessors' L ``carry`` and the
+    costs ``cost``, both [..., D] -> L."""
+    m = carry.amin(dim=-1, keepdim=True)
+    up = F.pad(carry[..., 1:], (0, 1), value=_BIG)
+    dn = F.pad(carry[..., :-1], (1, 0), value=_BIG)
+    best = torch.minimum(torch.minimum(carry, torch.minimum(up, dn) + p1), m + p2)
+    return cost + best - m
 
 
 def _directional(vol: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
@@ -34,18 +55,44 @@ def _directional(vol: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
     carry = vol[..., 0, :]
     out[..., 0, :] = carry
     for x in range(1, vol.shape[-2]):
-        m = carry.amin(dim=-1, keepdim=True)
-        up = F.pad(carry[..., 1:], (0, 1), value=_BIG)
-        dn = F.pad(carry[..., :-1], (1, 0), value=_BIG)
-        best = torch.minimum(torch.minimum(carry, torch.minimum(up, dn) + p1), m + p2)
-        carry = vol[..., x, :] + best - m
+        carry = _step(carry, vol[..., x, :], p1, p2)
         out[..., x, :] = carry
     return out
 
 
-def path(vol: torch.Tensor, p1: int, p2: int, along_y: bool, reverse: bool) -> torch.Tensor:
-    """One SGM path over [..., H, W, D]: along W (``along_y`` False) or
-    H, from the first index (``reverse`` False) or the last.  -> int32 L."""
+def _directional_diag(vol: torch.Tensor, p1: int, p2: int, dx: int) -> torch.Tensor:
+    """One diagonal top-to-bottom pass with predecessor (y-1, x-dx):
+    vol [..., H, W, D] -> int32 L of the same shape.  The carry (the
+    previous row's L) shifts by ``dx`` columns per row; a column whose
+    predecessor is outside the image gets an all-``_BIG`` carry, which
+    collapses the step to L = C."""
+    vol = vol.to(torch.int32)
+    out = torch.empty_like(vol)
+    carry = vol[..., 0, :, :]
+    out[..., 0, :, :] = carry
+    for y in range(1, vol.shape[-3]):
+        if dx == 1:
+            shifted = F.pad(carry[..., :-1, :], (0, 0, 1, 0), value=_BIG)
+        else:
+            shifted = F.pad(carry[..., 1:, :], (0, 0, 0, 1), value=_BIG)
+        carry = _step(shifted, vol[..., y, :, :], p1, p2)
+        out[..., y, :, :] = carry
+    return out
+
+
+def path(vol: torch.Tensor, p1: int, p2: int, direction: int, reverse: bool) -> torch.Tensor:
+    """One SGM path over [..., H, W, D] -> int32 L: along W (``X``), H
+    (``Y``) or a diagonal (``DIAG_PLUS`` steps (y+1, x+1), ``DIAG_MINUS``
+    (y+1, x-1)), from the first cell of each line (``reverse`` False) or
+    the last."""
+    if direction in (DIAG_PLUS, DIAG_MINUS):
+        dx = 1 if direction == DIAG_PLUS else -1
+        if not reverse:
+            return _directional_diag(vol, p1, p2, dx)
+        # The reverse walk is the forward pass of the other family on the
+        # y-flipped volume: (y+1, x+dx) lands at (y'-1, x+dx).
+        return _directional_diag(vol.flip(-3), p1, p2, -dx).flip(-3)
+    along_y = direction == Y
     v = vol.transpose(-3, -2) if along_y else vol
     if reverse:
         v = v.flip(-2)
@@ -60,19 +107,16 @@ def sgm_aggregate(
 ) -> torch.Tensor:
     """SGM aggregation of a cost volume [..., H, W, D] -> int32, same
     shape: the sum of the left->right, right->left, top->bottom and
-    bottom->top paths.  ``directions=8`` (the diagonal paths) is not
-    ported yet."""
+    bottom->top paths, plus the four diagonal paths with
+    ``directions=8``."""
     if p1 < 0 or p2 < p1:
         raise ValueError("need 0 <= p1 <= p2")
-    if directions == 8:
-        raise NotImplementedError(
-            "8-direction SGM (diagonal paths) is the next slice of the port"
-        )
-    if directions != 4:
+    if directions not in (4, 8):
         raise ValueError("directions must be 4 or 8")
-    out = path(vol, p1, p2, *PATHS[0])
-    for along_y, reverse in PATHS[1:]:
-        out += path(vol, p1, p2, along_y, reverse)
+    paths = PATHS + (DIAG_PATHS if directions == 8 else ())
+    out = path(vol, p1, p2, *paths[0])
+    for direction, reverse in paths[1:]:
+        out += path(vol, p1, p2, direction, reverse)
     return out
 
 

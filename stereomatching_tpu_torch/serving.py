@@ -4,9 +4,12 @@
     matcher = Matcher(StereoParams(num_shifts=64, edge_rule="exact"), device="cuda")
     arts = matcher(left_u8, right_u8)      # classic artifacts, numpy
 
+    box = ModernMatcher(device="cuda")     # ModernParams(): SAD, window 9, D=64
+    out = box(left_u8, right_u8)           # disparity, subpixel, ... numpy
+
     sgm = ModernMatcher(ModernParams(num_disparities=64, aggregation="sgm",
-                                     cost="census"), device="cuda")
-    out = sgm(left_u8, right_u8)           # disparity, subpixel, ... numpy
+                                     cost="census", sgm_directions=8,
+                                     median_filter=True, uniqueness=True))
 
 ``Matcher`` accepts uint8 pixel arrays (brightness = pixel / 256,
 float32) or brightness floats; ``ModernMatcher`` takes 0..255 integer
@@ -60,13 +63,18 @@ class Matcher:
 
 
 class ModernMatcher:
-    """Modern-pipeline runner (the SGM route) on ``device`` ("cuda" runs
-    the kernels, "cpu" their plain versions; a missing GPU raises)."""
+    """Modern-pipeline runner (box or SGM route; ``ModernParams()``, the
+    box route, when ``params`` is None) on ``device`` ("cuda" runs the
+    kernels, "cpu" their plain versions; a missing GPU raises)."""
 
-    def __init__(self, params: ModernParams, device: str | torch.device = "cuda"):
-        self.params = params
+    def __init__(
+        self,
+        params: Optional[ModernParams] = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.params = params or ModernParams()
         self.device = resolve_device(device)
-        self.pipeline = ModernPipeline(params).eval()
+        self.pipeline = ModernPipeline(self.params).eval()
 
     @staticmethod
     def _to_pixels(img: np.ndarray) -> np.ndarray:

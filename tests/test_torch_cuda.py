@@ -17,7 +17,7 @@ import torch
 from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
 from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.models import modern
-from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_sgm, sgm
+from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_modern, fused_sgm, sgm
 
 MODES = [BoundaryMode.WRAP, BoundaryMode.GHOST]
 
@@ -134,6 +134,64 @@ def test_sgm_directional_kernel_matches_plain(cuda_device, shape, vol_agg, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", DISPARITIES)
+@pytest.mark.parametrize("vol_agg", [(torch.int8, torch.int16), (torch.int16, torch.int16),
+                                     (torch.int32, torch.int32)])
+@pytest.mark.parametrize("shape", SGM_SHAPES + [(2, 1, 37), (2, 29, 1)])
+def test_sgm_diagonal_paths_kernel_match_plain(cuda_device, shape, vol_agg, d):
+    """Each of the four diagonal paths alone (written, then added onto a
+    filled aggregate), then the 8-path sum."""
+    vol_dtype, agg_dtype = vol_agg
+    rng = np.random.default_rng(26)
+    vol = torch.from_numpy(rng.integers(0, 25, (*shape, d)).astype(np.int32))
+    vol = vol.to(vol_dtype).to(cuda_device)
+    p1, p2 = (8, 96) if agg_dtype == torch.int16 else (10, 20000)
+    for direction, reverse in sgm.DIAG_PATHS:
+        ref = fused_sgm.sgm_directional_reference(vol, p1, p2, direction, reverse)
+        agg = torch.full(vol.shape, -1, dtype=agg_dtype, device=cuda_device)
+        fused_sgm.sgm_directional(vol, agg, p1, p2, direction, reverse, accumulate=False)
+        assert torch.equal(agg.to(torch.int32), ref), (direction, reverse)
+        agg = torch.full(vol.shape, 5, dtype=agg_dtype, device=cuda_device)
+        fused_sgm.sgm_directional(vol, agg, p1, p2, direction, reverse, accumulate=True)
+        assert torch.equal(agg.to(torch.int32), ref + 5), (direction, reverse)
+    before = fused_sgm.sgm_directional.launches
+    got = fused_sgm.sgm_aggregate_paths(vol, p1, p2, agg_dtype, directions=8)
+    torch.cuda.synchronize()
+    assert fused_sgm.sgm_directional.launches == before + 8
+    assert torch.equal(got.to(torch.int32), sgm.sgm_aggregate(vol, p1, p2, directions=8))
+
+
+BOX_SHAPES = [(2, 37, 45), (1, 64, 96), (3, 19, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 11, 64, 256])
+@pytest.mark.parametrize("window", [1, 9, 31, 101])
+@pytest.mark.parametrize("cost", ["sad", "census"])
+def test_disparity_kernel_matches_plain(cuda_device, cost, window, d):
+    """K7 against its plain version, both references; windows 1-31 stage
+    both views in shared memory, 101 reads them through L1."""
+    params = ModernParams(num_disparities=d, window=window, cost=cost)
+    assert fused_modern.staged(params) == (window < 100)
+    rng = np.random.default_rng(27)
+    for shape in BOX_SHAPES:
+        hi = 1 << 24 if cost == "census" else 256
+        ref = rng.integers(0, hi, shape).astype(np.int32)
+        other = np.clip(np.roll(ref, 3, axis=2) + rng.integers(-2, 3, shape), 0, hi - 1)
+        ref_t, other_t = (torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+                          for x in (ref, other))
+        for reference in ("left", "right"):
+            before = fused_modern.disparity.launches
+            got = fused_modern.disparity(ref_t, other_t, params, reference)
+            torch.cuda.synchronize()
+            assert fused_modern.disparity.launches == before + 1
+            want = fused_modern.disparity_reference(ref_t, other_t, params, reference)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                                          b.view(torch.int32)), reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", DISPARITIES)
 @pytest.mark.parametrize("agg_dtype", [torch.int16, torch.int32])
 @pytest.mark.parametrize("shape", SGM_SHAPES)
 def test_sgm_tail_kernel_matches_plain(cuda_device, shape, agg_dtype, d):
@@ -173,9 +231,18 @@ def test_fill_invalid_kernel_matches_plain(cuda_device, shape, iterations):
                                 dict(cost="sad", num_disparities=11, uniqueness=True,
                                      median_filter=True),
                                 dict(cost="census", num_disparities=8, sgm_p2=20000,
-                                     fill_mode="background", uniqueness=True)])
+                                     fill_mode="background", uniqueness=True),
+                                dict(cost="census", num_disparities=64, sgm_directions=8,
+                                     median_filter=True, uniqueness=True),
+                                dict(cost="sad", num_disparities=11, sgm_directions=8,
+                                     sgm_p2=20000, uniqueness=True),
+                                dict(aggregation="box", num_disparities=64),
+                                dict(aggregation="box", cost="census", window=5,
+                                     num_disparities=11, median_filter=True),
+                                dict(aggregation="box", num_disparities=8, window=35,
+                                     lr_max_diff=0, fill_mode="background")])
 def test_modern_forward_kernels_match_plain(cuda_device, kw):
-    params = ModernParams(aggregation="sgm", **kw)
+    params = ModernParams(**{"aggregation": "sgm", **kw})
     rng = np.random.default_rng(25)
     left = rng.integers(0, 256, (2, 45, 77)).astype(np.int32)
     right = np.roll(left, -3, axis=2)
@@ -201,3 +268,28 @@ def test_sgm_wrappers_check_inputs(cuda_device):
         fused_diffusion.fill_invalid(x.float(), x, 4)  # validity must be bool
     with pytest.raises(ValueError):
         fused_sgm.sgm_tail(vol.transpose(1, 2))
+    with pytest.raises(ValueError):
+        fused_sgm.sgm_directional(vol[..., :8], vol[..., :8].clone(), 8, 96, 4, False, False)
+
+
+@pytest.mark.cuda
+def test_disparity_wrapper_checks_inputs(cuda_device):
+    x = torch.zeros((2, 16, 16), dtype=torch.int32, device=cuda_device)
+    params = ModernParams(num_disparities=8)
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x.float(), x.float(), params)
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x.transpose(1, 2), x.transpose(1, 2), params)
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x, x[:1], params)
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x, x, params, reference="middle")
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x, x, ModernParams(num_disparities=8, window=257))
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x, x, ModernParams(num_disparities=300))
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x, x, ModernParams(num_disparities=8, scales=2))
+    with pytest.raises(ValueError):
+        fused_modern.disparity(x, x.cpu(), params)
+    assert fused_modern.disparity(x[0], x[0], params).disparity.shape == (16, 16)

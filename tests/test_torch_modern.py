@@ -1,12 +1,12 @@
-"""The PyTorch port's modern pipeline (SGM route) as a whole:
+"""The PyTorch port's modern pipeline (SGM route, 4 and 8 paths) as a whole:
 ``modern_forward``, ``ModernPipeline`` and ``ModernMatcher`` held bitwise
 against the JAX package's XLA tier (``modern_forward(use_pallas=False)``,
 jitted) on every output key, float planes included (tolerance 0).
 
-The matrix covers census and SAD costs, single pairs and batches,
-``median_filter``, ``uniqueness``, both fill modes, and each storage
-route: an int8 volume (census, D=32), int16 (SAD) and int32 (a large
-``sgm_p2``).  Params are built in the JAX package and carried across
+The matrix covers census and SAD costs, 4 and 8 paths, single pairs and
+batches, ``median_filter``, ``uniqueness``, both fill modes, and each
+storage route: an int8 volume (census, D=32), int16 (SAD) and int32 (a
+large ``sgm_p2``).  The box route has its own file, ``test_torch_box.py``.  Params are built in the JAX package and carried across
 with ``interop.params_from_jax``.
 """
 
@@ -39,6 +39,16 @@ CASES = [
     ("sad-median-background", dict(cost="sad", num_disparities=8, median_filter=True,
                                    fill_mode="background", sgm_p1=3, sgm_p2=20),
      (2, 48, 96), torch.int16, torch.int16),
+    # The 8-direction quality stack, one per storage route.
+    ("8dir-census-int8-uniq-median", dict(cost="census", num_disparities=32, sgm_directions=8,
+                                          uniqueness=True, median_filter=True),
+     (2, 24, 40), torch.int8, torch.int16),
+    ("8dir-sad-int16-uniq", dict(cost="sad", num_disparities=11, sgm_directions=8,
+                                 uniqueness=True), (2, 17, 29), torch.int16, torch.int16),
+    ("8dir-census-int32-uniq-median", dict(cost="census", num_disparities=8, sgm_p2=20000,
+                                           sgm_directions=8, uniqueness=True,
+                                           median_filter=True, census_window=3),
+     (1, 16, 24), torch.int32, torch.int32),
 ]
 
 
@@ -90,7 +100,8 @@ def test_modern_forward_batched_matches_jax(case):
     assert 0.2 < ref["valid"].mean() <= 1.0
 
 
-@pytest.mark.parametrize("case", [CASES[0], CASES[1]], ids=[CASES[0][0], CASES[1][0]])
+@pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[5]],
+                         ids=[CASES[0][0], CASES[1][0], CASES[5][0]])
 def test_modern_forward_single_pair_matches_jax(case):
     _, kw, shape, _, _ = case
     jp = jax_params(**kw)
@@ -124,6 +135,8 @@ def test_modern_matcher_cpu_matches_jax():
 
 
 def test_modern_pipeline_module_and_unported_routes():
+    """The module form, and the routes: scales=2 is still unported; the
+    box route and 8 paths, unported before, now run."""
     params = params_from_jax(jax_params(cost="sad", num_disparities=8))
     pipe = modern.build_modern_pipeline(params)
     assert isinstance(pipe, torch.nn.Module)
@@ -137,10 +150,16 @@ def test_modern_pipeline_module_and_unported_routes():
         pipe(lu.float(), ru.float())
     with pytest.raises(ValueError):
         pipe(lu, ru[:, :, :20])
-    for kw, match in ((dict(aggregation="box"), "box route"), (dict(scales=2), "scales=2"),
-                      (dict(sgm_directions=8), "8-direction")):
-        p = params_from_jax(JModernParams(**{"aggregation": "sgm", **kw}))
-        with pytest.raises(NotImplementedError, match=match):
-            modern.modern_forward(lu, ru, p)
-        with pytest.raises(NotImplementedError, match=match):
-            modern.ModernPipeline(p)
+    p = params_from_jax(JModernParams(aggregation="sgm", scales=2))
+    with pytest.raises(NotImplementedError, match="scales=2"):
+        modern.modern_forward(lu, ru, p)
+    with pytest.raises(NotImplementedError, match="scales=2"):
+        modern.ModernPipeline(p)
+    for kw in (dict(aggregation="box", num_disparities=8), dict(aggregation="sgm",
+                                                                 sgm_directions=8,
+                                                                 num_disparities=8)):
+        p = params_from_jax(JModernParams(**kw))
+        out = modern.ModernPipeline(p)(lu, ru)
+        assert sorted(out) == sorted(batched)
+        assert out["disparity"].shape == lu.shape
+        assert torch.equal(out["filled"][out["valid"]], out["subpixel"][out["valid"]])

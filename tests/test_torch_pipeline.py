@@ -169,6 +169,8 @@ def test_import_does_not_load_jax():
         "    __import__(n)\n"
         "from stereomatching_tpu_torch import (\n"
         "    Matcher, ClassicPipeline, ModernMatcher, ModernPipeline, ModernParams)\n"
+        "import stereomatching_tpu_torch.ops.fused_modern\n"
+        "assert 'stereomatching_tpu_torch.ops.fused_modern' in names, names\n"
         "assert len(names) >= 20, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'stereomatching_tpu' or m.startswith('stereomatching_tpu.'))\n"
@@ -218,12 +220,14 @@ def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
         Matcher(device="cuda")
     with pytest.raises(RuntimeError):
         ModernMatcher(PortModernParams(aggregation="sgm", cost="census"), device="cuda")
+    with pytest.raises(RuntimeError):
+        ModernMatcher()  # the box route on the default device, "cuda"
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     import torch.utils.cpp_extension as cpp_ext
 
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
     for name in ("match_score_edges", "sgm_volume", "sgm_directional", "sgm_tail",
-                 "fill_invalid"):
+                 "fill_invalid", "disparity"):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build(name)
     assert not (tmp_path / "build").exists() or not os.listdir(tmp_path / "build")

@@ -1,8 +1,10 @@
 """The PyTorch port's SGM ops and the plain versions of its four SGM
-kernels (K3 ``sgm_volume``, K4 ``sgm_directional``, K5 ``sgm_tail``, K6
-``fill_invalid``), held bitwise against the JAX package's XLA tier on the
-same inputs.  Tolerance 0 on every plane, the float ones (sub-pixel,
-filled) included: both sides run the same op order with IEEE division.
+kernels (K3 ``sgm_volume``, K4 ``sgm_directional`` with its diagonal
+paths, K5 ``sgm_tail``, K6 ``fill_invalid``), held bitwise against the JAX
+package's XLA tier on the same inputs.  Tolerance 0 on every plane, the
+float ones (sub-pixel, filled) included: both sides run the same op order
+with IEEE division.  K3's volume is also held against the scan-major
+volume kernel (Pallas, interpret mode) at one tiny shape.
 
 Inputs are made with numpy from a seed, at small odd shapes (16-48 rows,
 24-96 columns, D in {8, 11, 32}).  The port's ops take leading batch
@@ -12,6 +14,9 @@ the kernels themselves are held against these plain versions on the
 card in ``test_torch_cuda.py``.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from stereomatching_tpu.config import ModernParams as JModernParams
 from stereomatching_tpu.models import modern as j_modern
 from stereomatching_tpu.ops import costvolume as j_cv
 from stereomatching_tpu.ops import sgm as j_sgm
+from stereomatching_tpu.ops.fused_sgm import sgm_volume_vmajor_pallas
 from stereomatching_tpu_torch.interop import params_from_jax
 from stereomatching_tpu_torch.models import modern
 from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_sgm, sgm
@@ -52,6 +58,13 @@ def per_image(jfn, *arrays):
     """Stack ``jfn`` over the leading axis of numpy ``arrays``."""
     return np.stack([np.asarray(jfn(*(jnp.asarray(a[i]) for a in arrays)))
                      for i in range(arrays[0].shape[0])])
+
+
+def batched(jfn, *arrays):
+    """``jfn`` jitted and mapped over the leading axis of numpy ``arrays``
+    (one compile for the batch: the scans of the 8-path sum are slow to
+    trace image by image)."""
+    return np.asarray(jax.jit(jax.vmap(jfn))(*(jnp.asarray(a) for a in arrays)))
 
 
 # ------------------------------------------------------ ops/costvolume.py
@@ -157,10 +170,35 @@ def test_sgm_aggregate_four_paths(p1_p2):
     vol = cost_volume((2, 10, 13), 8, hi=25)
     got = sgm.sgm_aggregate(torch.from_numpy(vol), *p1_p2)
     assert_same(got, per_image(lambda v: j_sgm.sgm_aggregate(v, *p1_p2), vol))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sgm.sgm_aggregate(torch.from_numpy(vol), *p1_p2, directions=8)
+    # 8 directions add the diagonal paths (once a later slice; now equal).
+    assert_same(sgm.sgm_aggregate(torch.from_numpy(vol), *p1_p2, directions=8),
+                batched(lambda v: j_sgm.sgm_aggregate(v, *p1_p2, directions=8), vol))
     with pytest.raises(ValueError):
         sgm.sgm_aggregate(torch.from_numpy(vol), 5, 4)
+    with pytest.raises(ValueError):
+        sgm.sgm_aggregate(torch.from_numpy(vol), *p1_p2, directions=6)
+
+
+# Odd shapes for the diagonal line bookkeeping: H > W, H < W, W = 1, H = 1.
+DIAG_SHAPES = [(2, 11, 5), (2, 6, 13), (1, 9, 1), (1, 1, 9), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("d", [8, 11])
+@pytest.mark.parametrize("shape", DIAG_SHAPES)
+def test_directional_diag_matches_jax(shape, d):
+    vol = cost_volume(shape, d, seed=9)
+    p1, p2 = 8, 96
+    for dx in (1, -1):
+        assert_same(sgm._directional_diag(torch.from_numpy(vol), p1, p2, dx),
+                    batched(lambda v: j_sgm._directional_diag(v, p1, p2, dx), vol))
+
+
+@pytest.mark.parametrize("shape_d", [((2, 11, 5), 11), ((1, 6, 13), 8), ((1, 9, 1), 8)])
+def test_sgm_aggregate_eight_paths(shape_d):
+    shape, d = shape_d
+    vol = cost_volume(shape, d, hi=25, seed=10)
+    assert_same(sgm.sgm_aggregate(torch.from_numpy(vol), 3, 20, directions=8),
+                batched(lambda v: j_sgm.sgm_aggregate(v, 3, 20, directions=8), vol))
 
 
 # ------------------------------------------------------ kernel wrappers on CPU
@@ -225,6 +263,69 @@ def test_sgm_directional_plain_matches_jax(vol_dtype, out_dtype):
     summed = fused_sgm.sgm_aggregate_paths(t, p1, p2, out_dtype)
     assert summed.dtype == out_dtype
     assert_same(summed.to(torch.int32), per_image(lambda v: j_sgm.sgm_aggregate(v, p1, p2), vol))
+
+
+@functools.cache
+def diagonal_refs():
+    """A volume, the JAX package's four diagonal passes over it (keyed by
+    the port's (direction, reverse); the bottom-to-top ones on the
+    y-flipped volume, dx swapped) and its 8-path sum."""
+    vol = cost_volume((2, 9, 14), 11, hi=25, seed=11)
+    flip = functools.partial(jnp.flip, axis=0)
+    jax_pass = {(sgm.DIAG_PLUS, False): lambda v: j_sgm._directional_diag(v, 8, 96, 1),
+                (sgm.DIAG_MINUS, False): lambda v: j_sgm._directional_diag(v, 8, 96, -1),
+                (sgm.DIAG_PLUS, True): lambda v: flip(j_sgm._directional_diag(flip(v), 8, 96, -1)),
+                (sgm.DIAG_MINUS, True): lambda v: flip(j_sgm._directional_diag(flip(v), 8, 96, 1))}
+    paths = {k: batched(fn, vol) for k, fn in jax_pass.items()}
+    return vol, paths, batched(lambda v: j_sgm.sgm_aggregate(v, 8, 96, directions=8), vol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("vol_dtype", [torch.int8, torch.int16, torch.int32])
+def test_sgm_diagonal_paths_plain_match_jax(vol_dtype, out_dtype):
+    """K4's plain version on the diagonals: each path against the JAX
+    package's (y-flipped) _directional_diag, added into the aggregate,
+    and the 8-launch sum against sgm_aggregate(directions=8)."""
+    vol, jax_paths, jax_sum = diagonal_refs()
+    p1, p2 = 8, 96
+    t = torch.from_numpy(vol).to(vol_dtype)
+    agg = torch.full(t.shape, 3, dtype=out_dtype)
+    total = np.full(vol.shape, 3, np.int32)
+    before = fused_sgm.sgm_directional.launches
+    for direction, reverse in sgm.DIAG_PATHS:
+        ref = jax_paths[direction, reverse]
+        total += ref
+        fused_sgm.sgm_directional(t, agg, p1, p2, direction, reverse, accumulate=True)
+        assert_same(agg.to(torch.int32), total)
+        assert_same(fused_sgm.sgm_directional_reference(t, p1, p2, direction, reverse), ref)
+    assert fused_sgm.sgm_directional.launches == before
+    summed = fused_sgm.sgm_aggregate_paths(t, p1, p2, out_dtype, directions=8)
+    assert summed.dtype == out_dtype
+    assert_same(summed.to(torch.int32), jax_sum)
+    with pytest.raises(ValueError):
+        fused_sgm.sgm_aggregate_paths(t, p1, p2, out_dtype, directions=6)
+    with pytest.raises(ValueError):
+        fused_sgm.sgm_directional(t, agg, p1, p2, 4, False, False)
+
+
+@pytest.mark.parametrize("cost_dtype", [("census", torch.int8), ("sad", torch.int16)])
+def test_sgm_volume_matches_scan_major_volume(cost_dtype):
+    """The counterpart of the scan-major kernel (sgm_volume_vmajor_pallas,
+    the 8-direction route's volume on the TPU): K3's volume [B, H, W, D],
+    permuted to [H, D, B*W], holds the same values."""
+    cost, dtype = cost_dtype
+    rng = np.random.default_rng(12)
+    codes = [torch.from_numpy(rng.integers(0, 256, (2, 5, 128)).astype(np.int32))
+             for _ in range(2)]
+    if cost == "census":
+        codes = [costvolume.census_transform(c) for c in codes]
+    got = fused_sgm.sgm_volume_reference(*codes, 8, cost, dtype)
+    b, h, w, d = got.shape
+    got = got.permute(1, 3, 0, 2).reshape(h, d, b * w)
+    ref = sgm_volume_vmajor_pallas(*(jnp.asarray(c.numpy()) for c in codes), 8, cost=cost,
+                                   dtype=jnp.int8 if dtype == torch.int8 else jnp.int16,
+                                   interpret=True)
+    assert_same(got, ref)
 
 
 @pytest.mark.parametrize("with_uniqueness", [False, True])

@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port on one NVIDIA GPU, at the
 bench shapes: the classic pipeline (ghost mode, exact rule, 1024x1024,
-64 shifts) or the SGM route (census, 4 paths, 1024x1024, D=64).
+64 shifts) or one route of the modern pipeline at 1024x1024, D=64: the
+SGM route (census, 4 paths), the box route (``ModernParams()``: SAD,
+window 9) or the 8-direction quality stack (census, 8 paths, median,
+uniqueness).
 
-    python3 tools/profile_torch_pipeline.py                  # classic
-    python3 tools/profile_torch_pipeline.py --pipeline sgm   # SGM route
+    python3 tools/profile_torch_pipeline.py                   # classic
+    python3 tools/profile_torch_pipeline.py --pipeline sgm    # SGM route
+    python3 tools/profile_torch_pipeline.py --pipeline box    # box route
+    python3 tools/profile_torch_pipeline.py --pipeline sgm8   # 8-direction stack
 
 Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
@@ -21,13 +26,15 @@ reading:
   the split of one run into host u8->f32, host-to-device copy, pipeline
   and device-to-host copy + numpy, each step synchronised.
 
-SGM (``--pipeline sgm``): the same three readings for ``ModernPipeline``
-at batch 1, 8 and 32, the profiler over 3 batches of 32 (bench.py's SGM
-batch), a split of one batch-32 forward into its stages (census
-transform, K3 volume, K4 paths, K5 tail, the torch LR check, K6 fill),
-each timed with CUDA events, and ``ModernMatcher`` at batch 8 split into
-host pixel checks, host-to-device copy (uint8), pipeline (with the
-widening to int32) and device-to-host copy + numpy.
+Modern routes (``--pipeline sgm``, ``box``, ``sgm8``): the same three
+readings for ``ModernPipeline`` at batch 1, 8 and 32, the profiler over
+3 batches of 32 (bench.py's SGM batch), a split of one batch-32 forward
+into its stages, each timed with CUDA events (SGM: census transform, K3
+volume, K4 paths, K5 tail, then the torch median and uniqueness ratio
+where the params ask for them, the torch LR check, K6 fill; box: K7 for
+each reference view, the torch LR check, K6 fill), and ``ModernMatcher``
+at batch 8 split into host pixel checks, host-to-device copy (uint8),
+pipeline (with the widening to int32) and device-to-host copy + numpy.
 
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
@@ -102,24 +109,80 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def main_sgm() -> None:
+# The modern routes: (ModernParams fields, label).
+MODERN = {
+    "sgm": (dict(aggregation="sgm", cost="census"), "SGM census, 4 paths"),
+    "box": (dict(), "box route, SAD, window 9"),
+    "sgm8": (dict(aggregation="sgm", cost="census", sgm_directions=8, median_filter=True,
+                  uniqueness=True), "SGM census, 8 paths, median, uniqueness"),
+}
+
+
+def modern_stages(params, lt, rt) -> dict:
+    """The route's stages on the batch (lt, rt), in modern_forward's
+    order: name -> a callable running that stage alone."""
+    from stereomatching_tpu_torch.models import modern
+    from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_modern, fused_sgm
+
+    d = params.num_disparities
+
+    def lr(disp, dr):
+        return lambda: costvolume.lr_consistency(disp, dr, params.lr_max_diff, d)
+
+    if params.aggregation == "box":
+        dl = fused_modern.disparity(lt, rt, params, "left")
+        dr = fused_modern.disparity(rt, lt, params, "right")
+        valid = lr(dl.disparity, dr.disparity)()
+        return {
+            "K7 disparity, left view": lambda: fused_modern.disparity(lt, rt, params, "left"),
+            "K7 disparity, right view": lambda: fused_modern.disparity(rt, lt, params, "right"),
+            "LR check (torch)": lr(dl.disparity, dr.disparity),
+            "K6 fill_invalid x16": lambda: fused_diffusion.fill_invalid(
+                dl.subpixel, valid, params.fill_iterations),
+        }
+    st, odt = modern._sgm_storage_dtype(params), modern._sgm_out_dtype(params)
+    n_paths = params.sgm_directions
+    codes = [costvolume.census_transform(x).contiguous() for x in (lt, rt)]
+    vol = fused_sgm.sgm_volume(*codes, d, "census", st)
+    agg = fused_sgm.sgm_aggregate_paths(vol, params.sgm_p1, params.sgm_p2, odt, n_paths)
+    outs = fused_sgm.sgm_tail(agg, params.uniqueness)
+    disp, sub, cost, dr = outs[:4]
+    valid = lr(disp, dr)()
+    stages = {
+        "census transform (torch)": lambda: [costvolume.census_transform(x) for x in (lt, rt)],
+        "K3 sgm_volume": lambda: fused_sgm.sgm_volume(*codes, d, "census", st),
+        f"K4 sgm_directional x{n_paths}": lambda: fused_sgm.sgm_aggregate_paths(
+            vol, params.sgm_p1, params.sgm_p2, odt, n_paths),
+        "K5 sgm_tail": lambda: fused_sgm.sgm_tail(agg, params.uniqueness),
+    }
+    if params.uniqueness:
+        stages["uniqueness ratio (torch)"] = lambda: modern._uniqueness_ratio(outs[4], cost)
+    if params.median_filter:
+        stages["median x3 (torch)"] = lambda: [costvolume.median3x3(x) for x in (disp, sub, dr)]
+    stages["LR check (torch)"] = lr(disp, dr)
+    stages[f"K6 fill_invalid x{params.fill_iterations}"] = lambda: fused_diffusion.fill_invalid(
+        sub, valid, params.fill_iterations)
+    return stages
+
+
+def main_modern(route: str) -> None:
     import numpy as np
     import torch
 
     from stereomatching_tpu_torch import ModernParams
     from stereomatching_tpu_torch.interop import artifacts_to_numpy
     from stereomatching_tpu_torch.models import modern
-    from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_sgm
     from stereomatching_tpu_torch.serving import ModernMatcher
 
     smi = card()
     dev = torch.device("cuda", 0)
     n = SIZE
-    params = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census")
+    fields, label = MODERN[route]
+    params = ModernParams(num_disparities=SHIFTS, **fields)
     pipe = modern.ModernPipeline(params)
     rng = np.random.default_rng(SEED)
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"SGM census, 4 paths, {n}x{n}, D={SHIFTS}, random u8 pairs", flush=True)
+          f"{label}, {n}x{n}, D={SHIFTS}, random u8 pairs", flush=True)
 
     def batch_u8(b):
         return (rng.integers(0, 256, (b, n, n), dtype=np.uint8),
@@ -150,29 +213,13 @@ def main_sgm() -> None:
     three()
     profile_kernels(three, "batch 32 x3")
 
-    # The route's stages, in modern._sgm_forward's order, each timed alone.
-    st, odt = modern._sgm_storage_dtype(params), modern._sgm_out_dtype(params)
-    codes = [costvolume.census_transform(x).contiguous() for x in (lt, rt)]
-    vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", st)
-    agg = fused_sgm.sgm_aggregate_paths(vol, params.sgm_p1, params.sgm_p2, odt)
-    disp, sub, cost, dr = fused_sgm.sgm_tail(agg)
-    valid = costvolume.lr_consistency(disp, dr, params.lr_max_diff, SHIFTS)
-    stages = {
-        "census transform (torch)": lambda: [costvolume.census_transform(x) for x in (lt, rt)],
-        "K3 sgm_volume": lambda: fused_sgm.sgm_volume(*codes, SHIFTS, "census", st),
-        "K4 sgm_directional x4": lambda: fused_sgm.sgm_aggregate_paths(
-            vol, params.sgm_p1, params.sgm_p2, odt),
-        "K5 sgm_tail": lambda: fused_sgm.sgm_tail(agg),
-        "LR check (torch)": lambda: costvolume.lr_consistency(disp, dr, params.lr_max_diff,
-                                                              SHIFTS),
-        "K6 fill_invalid x16": lambda: fused_diffusion.fill_invalid(
-            sub, valid, params.fill_iterations),
-    }
+    # The route's stages, in modern_forward's order, each timed alone.
+    stages = modern_stages(params, lt, rt)
     times = {k: event_ms(fn, 3) for k, fn in stages.items()}
     whole = event_ms(lambda: pipe(lt, rt), 3)
     print(f"[stages batch 32] forward {whole:.3f} ms; " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / whole:.1f}%)" for k, v in times.items()), flush=True)
-    del vol, agg, codes, lt, rt
+    del stages, lt, rt
 
     matcher = ModernMatcher(params, device=dev)
     lu, ru = batch_u8(8)
@@ -281,17 +328,17 @@ def main_classic() -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--pipeline", choices=("classic", "sgm"), default="classic")
+    parser.add_argument("--pipeline", choices=("classic", *MODERN), default="classic")
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, str(ROOT))
-    if args.pipeline == "sgm":
-        main_sgm()
-    else:
+    if args.pipeline == "classic":
         main_classic()
+    else:
+        main_modern(args.pipeline)
 
 
 if __name__ == "__main__":
