@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stereomatching_tpu_torch``) on one
-NVIDIA GPU: builds the seven kernels from ``csrc/``, holds each against its
+NVIDIA GPU: builds the eight kernels from ``csrc/``, holds each against its
 plain torch version on the card, drives the classic pipeline through
-``Matcher`` and the modern pipeline's three routes through
-``ModernMatcher`` (4-path SGM, the box default, the 8-direction quality
-stack) at 1024x1024 with 64 shifts / disparities, and times kernel vs
-plain paths.
+``Matcher`` (exact and reference edge rules) and the CLI, and the modern
+pipeline's three routes through ``ModernMatcher`` (4-path SGM, the box
+default, the 8-direction quality stack) and ``scales=2`` through the CLI,
+at 1024x1024 with 64 shifts / disparities, and times kernel vs plain
+paths.
 
     python3 chip_smoke.py
 
 Phases (one line each): device, build, K1 vs plain, K2 vs plain, the
 classic slice, classic times, K3-K6 vs plain, the SGM slice, SGM times,
 K7 vs plain, K4's diagonals vs plain, the box slice, the 8-direction
-slice, box and 8-direction times.
+slice, box and 8-direction times, K8 vs plain, K1's sub-pixel plane vs
+plain, the reference-rule classic slice, the CLI (classic and modern
+``scales=2``), reference-rule and ``scales=2`` times.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -134,12 +137,19 @@ def region_interiors(size: int, margin: int):
 def plain_artifacts(left, right, params):
     """The classic slice's artifact dict from the kernels' plain torch
     versions, on the inputs' device: the comparison the kernel path is
-    held to."""
+    held to (either edge rule)."""
+    from stereomatching_tpu_torch.ops.argmax import match_and_score
     from stereomatching_tpu_torch.ops.contour import contour_bands
+    from stereomatching_tpu_torch.ops.edges import find_edges
     from stereomatching_tpu_torch.ops.fused import match_score_edges_reference
     from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range_reference
 
-    best, winner, edges_l, edges_r = match_score_edges_reference(left, right, params)
+    if params.edge_rule == "exact":
+        best, winner, edges_l, edges_r = match_score_edges_reference(left, right, params)
+    else:
+        edges_l, edges_r = (find_edges(x, params.threshold, params.mode, "reference")
+                            for x in (left, right))
+        best, winner = match_and_score(edges_l, edges_r, params)
     web, min_e, max_e = fill_web_holes_range_reference(winner, params.times)
     return {
         "edges-1": edges_l, "edges-2": edges_r, "score_best": best, "web-1": winner,
@@ -196,13 +206,14 @@ def main() -> None:
     print(f"[1 device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # Phase 2: build all seven kernels from the checkout's sources, one nvcc
+    # Phase 2: build all eight kernels from the checkout's sources, one nvcc
     # per source, all started together.
     t0 = time.perf_counter()
     sources = ["match_score_edges", "fill_web_holes", "sgm_volume", "sgm_directional",
-               "sgm_tail", "fill_invalid", "disparity"]
+               "sgm_tail", "fill_invalid", "disparity", "match_and_score"]
     build_all(sources)
-    fused._lib()
+    fused._lib("match_score_edges")
+    fused._lib("match_and_score")
     fused_diffusion._lib("fill_web_holes")
     fused_diffusion._lib("fill_invalid")
     for name in ("sgm_volume", "sgm_directional", "sgm_tail"):
@@ -627,6 +638,206 @@ def main() -> None:
           f"sgm_directional x 8 {k4_8_ms:.4f} ms vs plain {k4_8_plain_ms:.4f} ms (bound "
           f"{k4_8_bound[0]:.4f}, per batch of {BATCH})", flush=True)
 
+    del big, bpipe, qpipe
+
+    # Phase 15: K8 against its plain version at 8x1024x1024, D=64, sw=21 on
+    # the reference rule's edge maps of the slice's pairs (six textures
+    # shifted by a known disparity per region, whose edges are sparse and
+    # match at the true shift, and two random pairs), both modes, with and
+    # without the sub-pixel plane.  Bitwise.
+    from stereomatching_tpu_torch.ops import argmax
+    from stereomatching_tpu_torch.ops.edges import find_edges
+
+    scenes = [shifted_pair(rng, SIZE, block, SHIFTS) for block in (2, 4, 2, 4, 8, 16)]
+    scenes += [(rand_u8(SIZE, SIZE), rand_u8(SIZE, SIZE), None) for _ in range(2)]
+    left_u8 = np.stack([a for a, _, _ in scenes])
+    right_u8 = np.stack([b for _, b, _ in scenes])
+    lt = torch.from_numpy(u8_to_brightness(left_u8)).to(dev)
+    rt = torch.from_numpy(u8_to_brightness(right_u8)).to(dev)
+    k8_err, notes = 0, []
+    for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP):
+        p = StereoParams(num_shifts=SHIFTS, mode=mode)
+        el, er = (find_edges(x, p.threshold, mode, "reference") for x in (lt, rt))
+        for sub in (False, True):
+            got = fused.match_and_score(el, er, p, sub)
+            ref = (argmax.match_and_score_subpixel if sub else argmax.match_and_score)(el, er, p)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("best", "winner", "subpixel"), got, ref):
+                err = max_abs_diff(a, b)
+                k8_err = max(k8_err, err)
+                check(same(a, b), f"K8 {mode.value} {name} (subpixel={sub}) differs from "
+                      f"plain (max |d| {err})")
+        density = el.float().mean(dim=(1, 2))
+        notes.append(f"{mode.value}: edge density {float(density[:6].mean()):.2%} on the "
+                     f"textures, {float(density[6:].mean()):.2%} on the random pairs")
+    del el, er, got, ref
+    print(f"[15 K8] {BATCH}x{SIZE}x{SIZE} reference-rule edge maps of the slice's pairs, "
+          f"D={SHIFTS}, sw=21: best, winner and the sub-pixel plane == plain bitwise "
+          f"({'; '.join(notes)}; max |d| {k8_err})", flush=True)
+
+    # Phase 16: K1's sub-pixel plane against its plain version, both modes,
+    # on the same pairs.
+    k1s_err = 0
+    for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP):
+        p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule="exact")
+        got = fused.match_score_edges(lt, rt, p, subpixel=True)
+        ref = fused.match_score_edges_reference(lt, rt, p, subpixel=True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("best", "winner", "edges_l", "edges_r", "subpixel"), got, ref):
+            err = max_abs_diff(a, b)
+            k1s_err = max(k1s_err, err)
+            check(same(a, b), f"K1 {mode.value} {name} with subpixel differs from plain "
+                  f"(max |d| {err})")
+    k1_err = max(k1_err, k1s_err)
+    del got, ref
+    print(f"[16 K1 sub-pixel] {BATCH}x{SIZE}x{SIZE}, D={SHIFTS}, sw=21: five planes == plain "
+          f"bitwise in both modes (max |d| {k1s_err})", flush=True)
+
+    # Phase 17: the reference-rule classic slice through Matcher (wrap mode,
+    # the reference edge rule: the CLI's default run), counted from zero.
+    rparams = StereoParams(num_shifts=SHIFTS)
+    check(rparams.mode == BoundaryMode.WRAP and rparams.edge_rule == "reference",
+          f"StereoParams defaults {rparams}")
+    rmatcher = Matcher(rparams, device="cuda")
+    classic_wrappers = {"match_score_edges": fused.match_score_edges,
+                        "match_and_score": fused.match_and_score,
+                        "fill_web_holes_range": fused_diffusion.fill_web_holes_range}
+    for fn in classic_wrappers.values():
+        fn.launches = 0
+    arts = rmatcher(left_u8, right_u8)
+    ref_counts = {name: fn.launches for name, fn in classic_wrappers.items()}
+    want = {"match_score_edges": 0, "match_and_score": 1,
+            "fill_web_holes_range": rparams.times}
+    check(ref_counts == want, f"reference-rule slice kernel launches {ref_counts}, want {want}")
+    launches["match_and_score"] = ref_counts["match_and_score"]
+    plain = {k: v.cpu().numpy() for k, v in plain_artifacts(lt, rt, rparams).items()}
+    check(sorted(arts) == sorted(plain), f"artifact keys {sorted(arts)} != {sorted(plain)}")
+    for k in plain:
+        check(arts[k].dtype == plain[k].dtype and np.array_equal(arts[k], plain[k]),
+              f"reference-rule slice artifact {k} differs from the plain pipeline")
+    check(arts["web-1"].min() >= 1 and arts["web-1"].max() <= SHIFTS, "winner out of 1..D")
+    interior = region_interiors(SIZE, rparams.half + SHIFTS)
+    recovered = []
+    for i in range(4):
+        hit = float((arts["web-1"][i] == scenes[i][2] + 1)[interior].mean())
+        recovered.append(hit)
+        check(hit >= 0.99, f"reference-rule scene {i}: true disparity on {hit:.4%} of interiors")
+    print(f"[17 reference-rule slice] Matcher(wrap, reference rule, D={SHIFTS}) on "
+          f"{BATCH}x{SIZE}x{SIZE} (6 shifted textures, 2 random): {len(arts)} artifacts == "
+          f"plain pipeline bitwise; true disparity on "
+          f"{', '.join(f'{h:.4%}' for h in recovered)} of the region interiors of the fine "
+          f"textures; kernel launches {ref_counts}", flush=True)
+
+    # Phase 18: the CLI on the card, in a subprocess: the default classic run
+    # (wrap, reference rule) on a shifted-texture pair written as PNGs, its
+    # PPMs against the plain pipeline's rendering; then the modern pipeline's
+    # SGM route at scales=2, its disparity.npz against the plain route.
+    import re
+    import tempfile
+
+    from stereomatching_tpu_torch.utils.imageio import (
+        artifact_ppm_type, ppm_bytes, write_png_gray)
+
+    timing_re = re.compile(r"^width = 1024, height = 1024, t1 = [\d.]+, t2 = [\d.]+, "
+                           r"elapsed = ([\d.]+)$")
+
+    def run_cli(*args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "stereomatching_tpu_torch.cli", *args],
+                             cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(res.returncode == 0, f"CLI {args[2:]} exited {res.returncode}: {res.stderr[-2000:]}")
+        line = res.stdout.strip().splitlines()[-1]
+        m = timing_re.match(line)
+        check(m is not None, f"CLI timing line {line!r}")
+        return wall, float(m.group(1))
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        lpng, rpng = str(tmp / "L.png"), str(tmp / "R.png")
+        write_png_gray(lpng, left_u8[0])
+        write_png_gray(rpng, right_u8[0])
+        cli_wall, cli_elapsed = run_cli(lpng, rpng, "--shifts", str(SHIFTS),
+                                        "--outdir", str(tmp / "classic"))
+        ppms = sorted(f.name for f in (tmp / "classic").iterdir())
+        want_ppms = {"edges-1", "edges-2", "score_best-0", "web-1", "web-2", "output-0"}
+        check(ppms == sorted(f"{n}.ppm" for n in want_ppms), f"CLI wrote {ppms}")
+        for name, v in plain.items():
+            if name in ("min_elevation", "max_elevation"):
+                continue
+            fname = "score_best-0" if name == "score_best" else name
+            check((tmp / "classic" / f"{fname}.ppm").read_bytes()
+                  == ppm_bytes(v[0], artifact_ppm_type(fname)),
+                  f"CLI {fname}.ppm differs from the plain pipeline's rendering")
+        s2params = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census",
+                                scales=2)
+        cli2_wall, cli2_elapsed = run_cli(
+            lpng, rpng, "--pipeline", "modern", "--aggregation", "sgm", "--cost", "census",
+            "--scales", "2", "--shifts", str(SHIFTS), "--outdir", str(tmp / "modern"))
+        want = modern.modern_forward_reference(
+            *(torch.from_numpy(x[0]).to(dev).to(torch.int32) for x in (left_u8, right_u8)),
+            s2params)
+        with np.load(tmp / "modern" / "disparity.npz") as z:
+            check(sorted(z.files) == sorted(want), f"disparity.npz keys {z.files}")
+            for k, v in want.items():
+                check(same(torch.from_numpy(z[k]), v.cpu()),
+                      f"CLI scales=2 {k} differs from the plain route")
+    print(f"[18 CLI] python -m stereomatching_tpu_torch.cli L.png R.png --shifts {SHIFTS} "
+          f"(1024x1024, wrap, reference rule): rc 0, timing line, six PPMs == the plain "
+          f"pipeline's rendering, {cli_wall:.3f} s wall ({cli_elapsed:.3f} s elapsed "
+          f"field); --pipeline modern --aggregation sgm --cost census --scales 2: "
+          f"disparity.npz == the plain route, {cli2_wall:.3f} s wall ({cli2_elapsed:.3f} s "
+          f"elapsed field)", flush=True)
+
+    # Phase 19: times.  K8 and K1 with the sub-pixel plane per batch of 8
+    # (the slice's pairs), each against its plain version and beside K1
+    # without it on the same inputs; the reference-rule pipeline
+    # device-resident at batch 8 with the kernels and plain; the scales=2 SGM
+    # pipeline at batch 8, its launches counted from zero.
+    el, er = (find_edges(x, rparams.threshold, rparams.mode, "reference") for x in (lt, rt))
+    k8_ms = cuda_time_ms(lambda: fused.match_and_score(el, er, rparams), 5)
+    k8_plain_ms = cuda_time_ms(lambda: argmax.match_and_score(el, er, rparams), 2)
+    k8s_ms = cuda_time_ms(lambda: fused.match_and_score(el, er, rparams, True), 5)
+    xparams = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
+    k1_same_ms = cuda_time_ms(lambda: fused.match_score_edges(lt, rt, xparams), 5)
+    k1s_ms = cuda_time_ms(lambda: fused.match_score_edges(lt, rt, xparams, True), 5)
+    k1s_plain_ms = cuda_time_ms(
+        lambda: fused.match_score_edges_reference(lt, rt, xparams, True), 2)
+    edges_ms = cuda_time_ms(
+        lambda: [find_edges(x, rparams.threshold, rparams.mode, "reference") for x in (lt, rt)], 5)
+    rpipe = ClassicPipeline(rparams)
+    ref_pipe_ms = cuda_time_ms(lambda: rpipe(lt, rt), 5) / BATCH
+    ref_plain_ms = cuda_time_ms(lambda: plain_artifacts(lt, rt, rparams), 2) / BATCH
+    del el, er
+    pix = [torch.from_numpy(x).to(dev).to(torch.int32) for x in (left_u8, right_u8)]
+    s2pipe = modern.ModernPipeline(s2params)
+    for fn in all_wrappers.values():
+        fn.launches = 0
+    s2pipe(*pix)
+    s2_counts = {name: fn.launches for name, fn in all_wrappers.items()}
+    want = {"disparity": 0, "sgm_volume": 0, "sgm_directional": 4, "sgm_tail": 1,
+            "fill_invalid": 16}
+    check(s2_counts == want, f"scales=2 SGM kernel launches {s2_counts}, want {want}")
+    s2_ms = cuda_time_ms(lambda: s2pipe(*pix), 3) / BATCH
+    s2_plain_ms = cuda_time_ms(lambda: modern.modern_forward_reference(*pix, s2params), 1) / BATCH
+    # K8: two int32 edge maps in, two int32 planes out (16 B per pixel);
+    # ~10 int ops per pixel and shift, as K1.  With the sub-pixel plane
+    # 4 B more out and ~16 ops (the four neighbour carries).
+    k8_bound = bound(16 * npix, 10 * npix * SHIFTS, INT32_OPS_PER_S)
+    k8s_bound = bound(20 * npix, 16 * npix * SHIFTS, INT32_OPS_PER_S)
+    k1s_bound = bound(28 * npix, 16 * npix * SHIFTS, INT32_OPS_PER_S)
+    print(f"[19 reference-rule and scales=2 times] {smi}: match_and_score {k8_ms:.4f} ms vs "
+          f"plain {k8_plain_ms:.4f} ms (bound {k8_bound[0]:.4f}), with sub-pixel "
+          f"{k8s_ms:.4f} ms (bound {k8s_bound[0]:.4f}); match_score_edges {k1_same_ms:.4f} ms, "
+          f"with sub-pixel {k1s_ms:.4f} ms ({k1s_ms / k1_same_ms:.3f}x) vs plain "
+          f"{k1s_plain_ms:.4f} ms (bound {k1s_bound[0]:.4f}); reference-rule edges (torch) "
+          f"{edges_ms:.4f} ms (per batch of {BATCH}); reference-rule pipeline {ref_pipe_ms:.4f} "
+          f"ms/pair with kernels, {ref_plain_ms:.4f} plain (batch {BATCH}); scales=2 SGM "
+          f"(census, 4 paths) {s2_ms:.4f} ms/pair with kernels, {s2_plain_ms:.4f} plain "
+          f"(batch {BATCH}; launches {s2_counts}); CLI {cli_wall:.3f} s wall (classic), "
+          f"{cli2_wall:.3f} s (scales=2 SGM)", flush=True)
+
     src = "stereomatching_tpu_torch/csrc/"
     rows = [
         ("match_score_edges", "match_score_edges.cu", "stereomatching_tpu/ops/fused.py:1044",
@@ -644,6 +855,8 @@ def main() -> None:
          errs["fill_invalid"], *ms["fill_invalid"], bounds["fill_invalid"]),
         ("disparity", "disparity.cu", "stereomatching_tpu/ops/fused_modern.py:232",
          k7_err, k7_ms, k7_plain_ms, k7_bound),
+        ("match_and_score", "match_and_score.cu", "stereomatching_tpu/ops/fused.py:696",
+         k8_err, k8_ms, k8_plain_ms, k8_bound),
     ]
     table = [
         {"name": name, "route": "cuda", "source": src + cu, "replaces": replaces,
@@ -655,6 +868,13 @@ def main() -> None:
     table[3].update({"launches_8dir": q_counts["sgm_directional"], "ms_8dir": k4_8_ms,
                      "plain_ms_8dir": k4_8_plain_ms, "bound_ms_8dir": k4_8_bound[0],
                      "bound_by_8dir": k4_8_bound[1]})
+    # The sub-pixel variants of K1 and K8 (timed on the reference-rule
+    # slice's batch; K1 beside its own time without the plane there).
+    table[0].update({"ms_same_inputs": k1_same_ms, "ms_subpixel": k1s_ms,
+                     "plain_ms_subpixel": k1s_plain_ms, "bound_ms_subpixel": k1s_bound[0],
+                     "bound_by_subpixel": k1s_bound[1]})
+    table[7].update({"ms_subpixel": k8s_ms, "bound_ms_subpixel": k8s_bound[0],
+                     "bound_by_subpixel": k8s_bound[1]})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

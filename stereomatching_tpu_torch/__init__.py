@@ -6,17 +6,21 @@ ops; the Pallas kernels on the ported routes are hand-written CUDA C++
 for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use:
 
 * classic pipeline (``models/classic.py``, ``Matcher``):
-  ``ops.fused.match_score_edges`` (edges + match + box score + argmax)
-  and ``ops.fused_diffusion.fill_web_holes_range`` (hole-filling steps +
-  per-image min/max);
-* modern pipeline (``models/modern.py``, ``ModernMatcher``) at
-  ``scales=1``: on the box route (the default) ``ops.fused_modern.disparity``
-  (per-pixel cost + window sum + argmin + sub-pixel, twice per forward);
-  on the SGM route ``ops.fused_sgm.sgm_volume`` (census / SAD cost
-  volume), ``ops.fused_sgm.sgm_directional`` (one SGM path: four per call
-  with 4 directions, eight with the diagonals) and ``ops.fused_sgm.sgm_tail``
-  (argmin, sub-pixel, right view, second best); on both
-  ``ops.fused_diffusion.fill_invalid`` (validity-aware hole fill).
+  ``ops.fused.match_score_edges`` (exact rule: edges + match + box score +
+  argmax) or ``ops.fused.match_and_score`` (reference rule: match + box
+  score + argmax from torch edge maps), both with an optional sub-pixel
+  plane, and ``ops.fused_diffusion.fill_web_holes_range`` (hole-filling
+  steps + per-image min/max);
+* modern pipeline (``models/modern.py``, ``ModernMatcher``): on the box
+  route (the default) ``ops.fused_modern.disparity`` (per-pixel cost +
+  window sum + argmin + sub-pixel, twice per forward; ``scales=2`` runs
+  as torch ops); on the SGM route ``ops.fused_sgm.sgm_volume`` (census /
+  SAD cost volume; torch ops at ``scales=2``), ``ops.fused_sgm.sgm_directional``
+  (one SGM path: four per call with 4 directions, eight with the
+  diagonals) and ``ops.fused_sgm.sgm_tail`` (argmin, sub-pixel, right
+  view, second best); on both ``ops.fused_diffusion.fill_invalid``
+  (validity-aware hole fill);
+* the reference-compatible CLI, ``python -m stereomatching_tpu_torch.cli``.
 
 Each kernel wrapper runs its plain torch version on CPU tensors and the
 kernel on CUDA tensors (no fallback).  The port owns its parameters

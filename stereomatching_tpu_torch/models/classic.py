@@ -4,24 +4,31 @@ edges -> per-shift match + box score + argmax -> diffusion -> contour,
 in both boundary modes, on one pair [H, W] or a batch [B, H, W].
 
 With ``edge_rule="exact"`` the first phases run as ``match_score_edges``
-and the diffusion as ``fill_web_holes_range``: the CUDA kernels on CUDA
-tensors, their plain torch versions on CPU tensors.  The
-``"reference"`` edge rule runs its float edges and the scoring loop as
-plain torch on every device.
+(K1); with the ``"reference"`` rule the float edges are torch ops and
+the scoring loop runs as ``match_and_score`` (K8).  The diffusion runs
+as ``fill_web_holes_range`` (K2).  Each is the CUDA kernel on CUDA
+tensors and its plain torch version on CPU tensors.  ``subpixel`` adds
+the parabola-refined float32 ``"subpixel"`` artifact on both rules.
+
+The collect pipeline also returns the per-shift planes the reference
+dumps in its debug builds.  No kernel produces those planes (the JAX
+package builds them on XLA only), so its scoring loop is plain torch on
+every device; its diffusion runs as K2 like the other routes.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Callable, Dict
 
 import torch
 from torch import nn
 
 from stereomatching_tpu_torch.config import StereoParams
-from stereomatching_tpu_torch.ops.argmax import match_and_score
+from stereomatching_tpu_torch.ops.argmax import match_and_score_collect
 from stereomatching_tpu_torch.ops.contour import contour_bands
 from stereomatching_tpu_torch.ops.edges import find_edges
-from stereomatching_tpu_torch.ops.fused import match_score_edges
+from stereomatching_tpu_torch.ops.fused import match_and_score, match_score_edges
 from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range
 
 Artifacts = Dict[str, torch.Tensor]
@@ -42,52 +49,66 @@ def classic_finish(winner: torch.Tensor, params: StereoParams) -> Artifacts:
     }
 
 
-def _forward(left: torch.Tensor, right: torch.Tensor, params: StereoParams) -> Artifacts:
+def _edges(left: torch.Tensor, right: torch.Tensor, params: StereoParams):
+    return tuple(find_edges(x, params.threshold, params.mode, params.edge_rule)
+                 for x in (left, right))
+
+
+def _forward(
+    left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool
+) -> Artifacts:
     if params.edge_rule == "exact":
-        best, winner, edges_l, edges_r = match_score_edges(left, right, params)
+        best, winner, edges_l, edges_r, *sub = match_score_edges(
+            left, right, params, subpixel)
     else:
-        edges_l = find_edges(left, params.threshold, params.mode, params.edge_rule)
-        edges_r = find_edges(right, params.threshold, params.mode, params.edge_rule)
-        best, winner = match_and_score(edges_l, edges_r, params)
-    return {
+        edges_l, edges_r = _edges(left, right, params)
+        best, winner, *sub = match_and_score(edges_l, edges_r, params, subpixel)
+    out = {
         "edges-1": edges_l,
         "edges-2": edges_r,
         "score_best": best,
         "web-1": winner,
         **classic_finish(winner, params),
     }
+    if subpixel:
+        out["subpixel"] = sub[0]
+    return out
 
 
 def classic_forward(
-    left: torch.Tensor, right: torch.Tensor, params: StereoParams
+    left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool = False
 ) -> Artifacts:
     """Full pipeline on one brightness pair [H, W] -> artifact dict (int32
-    planes, int32 scalar min/max elevation)."""
+    planes, int32 scalar min/max elevation; with ``subpixel`` also the
+    float32 ``"subpixel"`` plane)."""
     if left.ndim != 2:
         raise ValueError(f"classic_forward takes [H, W], got {tuple(left.shape)}")
-    return _forward(left, right, params)
+    return _forward(left, right, params, subpixel)
 
 
 def classic_forward_batched(
-    left: torch.Tensor, right: torch.Tensor, params: StereoParams
+    left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool = False
 ) -> Artifacts:
     """Batched pipeline [B, H, W] -> artifact dict (int32 planes [B, H, W],
-    per-pair min/max elevation [B])."""
+    per-pair min/max elevation [B]; with ``subpixel`` the float32
+    ``"subpixel"`` planes)."""
     if left.ndim != 3:
         raise ValueError(
             f"classic_forward_batched takes [B, H, W], got {tuple(left.shape)}"
         )
-    return _forward(left, right, params)
+    return _forward(left, right, params, subpixel)
 
 
 class ClassicPipeline(nn.Module):
     """The classic pipeline as a module with no parameters: ``forward(left,
     right)`` takes float brightness in [0, 1), [H, W] or [B, H, W], and
-    returns the artifact dict on the inputs' device."""
+    returns the artifact dict on the inputs' device (with ``subpixel``,
+    the ``"subpixel"`` plane too)."""
 
-    def __init__(self, params: StereoParams):
+    def __init__(self, params: StereoParams, subpixel: bool = False):
         super().__init__()
         self.params = params
+        self.subpixel = subpixel
 
     @torch.no_grad()
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> Artifacts:
@@ -95,9 +116,44 @@ class ClassicPipeline(nn.Module):
             raise ValueError("the two images must have equal width and height")
         h, w = left.shape[-2:]
         self.params.validate_for_image(w, h)
-        return _forward(left, right, self.params)
+        return _forward(left, right, self.params, self.subpixel)
 
 
-def build_classic_pipeline(params: StereoParams) -> ClassicPipeline:
+def build_classic_pipeline(params: StereoParams, subpixel: bool = False) -> ClassicPipeline:
     """The pipeline for fixed params, in eval mode."""
-    return ClassicPipeline(params).eval()
+    return ClassicPipeline(params, subpixel).eval()
+
+
+def build_classic_finish_pipeline(params: StereoParams) -> Callable[[torch.Tensor], Artifacts]:
+    """``classic_finish`` for fixed params (the CLI's ``--resume``)."""
+    return torch.no_grad()(functools.partial(classic_finish, params=params))
+
+
+def build_classic_collect_pipeline(
+    params: StereoParams,
+) -> Callable[[torch.Tensor, torch.Tensor], Artifacts]:
+    """The artifact-collecting pipeline: besides the classic artifacts,
+    the stacked per-shift planes ``matches``, ``score_all`` and
+    ``scores`` ([D, H, W], or [B, D, H, W] for a batch) that the
+    reference dumps in its debug builds.  The scoring loop
+    (``match_and_score_collect``) is plain torch on every device, as no
+    kernel produces the per-shift planes; the finish is
+    ``classic_finish`` (K2 on CUDA tensors)."""
+
+    @torch.no_grad()
+    def forward(left: torch.Tensor, right: torch.Tensor) -> Artifacts:
+        edges_l, edges_r = _edges(left, right, params)
+        matches, sums, scores, best, winner = match_and_score_collect(
+            edges_l, edges_r, params)
+        return {
+            "edges-1": edges_l,
+            "edges-2": edges_r,
+            "matches": matches,
+            "score_all": sums,
+            "scores": scores,
+            "score_best": best,
+            "web-1": winner,
+            **classic_finish(winner, params),
+        }
+
+    return forward

@@ -1,5 +1,5 @@
 """The modern pipeline (counterpart of
-``stereomatching_tpu/models/modern.py`` at ``scales=1``), two routes:
+``stereomatching_tpu/models/modern.py``), two routes:
 
 * box (``aggregation="box"``, the default): for each reference view the
   per-pixel SAD or census cost, its window sum and the first-minimum
@@ -19,10 +19,16 @@ plain torch versions on CPU tensors.  The census transform, the
 uniqueness ratio, the median, the LR check and the background fill are
 torch ops on every device.
 
+Multi-scale fusion (``scales=2``) adds ``coarse_weight`` x a cost of
+disparity d // 2 computed on the 2x2-block-summed images, upsampled by
+pixel repetition: on the box route the window-summed coarse cost (torch
+ops on every device, as the JAX package runs it on XLA only), on the SGM
+route the per-pixel coarse cost inside the volume, which torch ops build
+in the storage dtype before the SGM kernels take over.
+
 SGM storage: the volume and the aggregate take the narrowest integer
 type that holds every value (``_sgm_storage_dtype``, ``_sgm_out_dtype``);
-the outputs are the same bits whatever storage is chosen.  Not ported
-yet: ``scales=2``.
+the outputs are the same bits whatever storage is chosen.
 """
 
 from __future__ import annotations
@@ -70,15 +76,14 @@ _PLAIN = _Route(
 def _sgm_cost_bound(params: ModernParams) -> int:
     """Per-pixel cost ceiling of the SGM volume: census Hamming distance
     is at most the code's bit count (window^2 - 1), SAD on 8-bit
-    intensities at most 255; multi-scale fusion adds coarse_weight x the
-    same bound."""
-    base = (
-        params.census_window * params.census_window - 1
-        if params.cost == "census"
-        else 255
-    )
+    intensities at most 255.  Multi-scale fusion adds coarse_weight x the
+    coarse level's ceiling: the same bit count for census (codes of the
+    summed image have as many bits), but 4 x 255 for SAD, since the
+    coarse pixels are 2x2 sums."""
+    census = params.cost == "census"
+    base = params.census_window * params.census_window - 1 if census else 255
     if params.scales == 2:
-        base *= 1 + params.coarse_weight
+        return base + params.coarse_weight * (base if census else 4 * 255)
     return base
 
 
@@ -137,13 +142,6 @@ def _fill(sub, valid, params: ModernParams, fill_invalid: Callable):
     return fill_invalid(sub, valid, params.fill_iterations)
 
 
-def _check_supported(params: ModernParams) -> None:
-    if params.scales != 1:
-        raise NotImplementedError(
-            "scales=2 (multi-scale cost fusion, an XLA-only route in the "
-            "JAX package) is a later slice of the port")
-
-
 def _cost_inputs(left, right, params: ModernParams):
     """int32 cost inputs of both images: the pixels for SAD, the census
     codes for census."""
@@ -152,6 +150,27 @@ def _cost_inputs(left, right, params: ModernParams):
         codes = [costvolume.census_transform(x, params.census_window).contiguous()
                  for x in codes]
     return codes
+
+
+def _downsample2(img: torch.Tensor) -> torch.Tensor:
+    """2x2 block sum of [..., H, W] (exact integers); an odd last row or
+    column is replicated first."""
+    h, w = img.shape[-2:]
+    if h % 2 or w % 2:
+        ys = torch.arange(h + h % 2, device=img.device).clamp(max=h - 1)
+        xs = torch.arange(w + w % 2, device=img.device).clamp(max=w - 1)
+        img = img[..., ys, :][..., xs]
+    return (img[..., 0::2, 0::2] + img[..., 0::2, 1::2]
+            + img[..., 1::2, 0::2] + img[..., 1::2, 1::2])
+
+
+def _coarse_inputs(left, right, params: ModernParams):
+    """The cost inputs of the 2x2-summed images (census codes are taken
+    of the summed intensities) at ``scales=2``; None at ``scales=1``."""
+    if params.scales != 2:
+        return None
+    return _cost_inputs(*(_downsample2(x.to(torch.int32)) for x in (left, right)),
+                        params)
 
 
 def _finish(disp, sub, dr, cost, params: ModernParams, route: _Route) -> Outputs:
@@ -171,8 +190,12 @@ def _finish(disp, sub, dr, cost, params: ModernParams, route: _Route) -> Outputs
 
 def _sgm_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
     codes = _cost_inputs(left, right, params)
-    vol = route.volume(*codes, params.num_disparities, params.cost,
-                       _sgm_storage_dtype(params))
+    args = (*codes, params.num_disparities, params.cost, _sgm_storage_dtype(params))
+    if params.scales == 2:
+        coarse = (*_coarse_inputs(left, right, params), params.coarse_weight)
+        vol = fused_sgm.sgm_volume_reference(*args, coarse)
+    else:
+        vol = route.volume(*args)
     del codes
     agg = route.aggregate(vol, params.sgm_p1, params.sgm_p2, _sgm_out_dtype(params),
                           params.sgm_directions)
@@ -186,15 +209,30 @@ def _sgm_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
     return out
 
 
-def _one_view(codes, params: ModernParams, reference: str, route: _Route) -> DisparityResult:
-    ref, other = codes if reference == "left" else codes[::-1]
-    return route.disparity(ref, other, params, reference)
+def _one_view(codes, coarse, params: ModernParams, reference: str,
+              route: _Route) -> DisparityResult:
+    def ordered(pair):
+        return pair if reference == "left" else pair[::-1]
+
+    ref, other = ordered(codes)
+    if coarse is None:
+        return route.disparity(ref, other, params, reference)
+    return costvolume.box_disparity(
+        ref, other, params.num_disparities, params.window, params.cost, reference,
+        (*ordered(coarse), params.coarse_weight))
+
+
+def _box_views(left, right, params: ModernParams, route: _Route, views):
+    """DisparityResult of each reference view in ``views``: K7 (or its
+    plain version) at ``scales=1``; at ``scales=2`` ``box_disparity``
+    with its coarse term, torch ops on every device."""
+    codes = _cost_inputs(left, right, params)
+    coarse = _coarse_inputs(left, right, params)
+    return [_one_view(codes, coarse, params, v, route) for v in views]
 
 
 def _box_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
-    codes = _cost_inputs(left, right, params)
-    dl = _one_view(codes, params, "left", route)
-    dr = _one_view(codes, params, "right", route)
+    dl, dr = _box_views(left, right, params, route, ("left", "right"))
     return _finish(dl.disparity, dl.subpixel, dr.disparity, dl.cost, params, route)
 
 
@@ -204,16 +242,16 @@ def disparity_one_view(
     """The box route's disparity for one reference view of integer pixel
     planes [H, W] or [B, H, W]: the left reference matches L(x) against
     R(x - d), the right one R(x) against L(x + d).  For census both images
-    go through the census transform first.  K7 on CUDA tensors, its plain
-    version on CPU tensors."""
+    go through the census transform first.  At ``scales=1`` K7 on CUDA
+    tensors, its plain version on CPU tensors; at ``scales=2`` torch ops."""
     _check_inputs(left, right)
-    _check_supported(params)
-    return _one_view(_cost_inputs(left, right, params), params, reference, _KERNELS)
+    if reference not in ("left", "right"):
+        raise ValueError(f"reference must be 'left' or 'right', got {reference!r}")
+    return _box_views(left, right, params, _KERNELS, (reference,))[0]
 
 
 def _forward(left, right, params: ModernParams, route: _Route) -> Outputs:
     _check_inputs(left, right)
-    _check_supported(params)
     fwd = _sgm_forward if params.aggregation == "sgm" else _box_forward
     return fwd(left, right, params, route)
 
@@ -254,7 +292,6 @@ class ModernPipeline(nn.Module):
 
     def __init__(self, params: ModernParams):
         super().__init__()
-        _check_supported(params)
         self.params = params
 
     @torch.no_grad()

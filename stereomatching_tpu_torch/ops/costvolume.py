@@ -1,8 +1,9 @@
 """Cost-volume helpers of the modern pipeline (counterpart of
 ``stereomatching_tpu/ops/costvolume.py``): census transform, popcount,
 the first-minimum argmin with parabola sub-pixel refine, the box route's
-windowed disparity (``sad_disparity``, ``box_disparity``), LR
-consistency, the 3x3 median, and the two hole fills.
+windowed disparity (``sad_disparity``, ``box_disparity``, with the
+optional coarse term of multi-scale fusion), LR consistency, the 3x3
+median, and the two hole fills.
 
 Plain torch on every device.  All functions take [..., H, W] planes
 (leading batch dims pass through).  Costs and disparities are exact
@@ -143,33 +144,67 @@ def argmin_subpixel_scan(
     )
 
 
+def upsample2(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Pixel repetition x2 on both axes, cropped to [..., h, w] (the
+    coarse level of multi-scale fusion back at full size)."""
+    return img.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)[..., :h, :w]
+
+
+def pixel_cost(a: torch.Tensor, b: torch.Tensor, cost: str) -> torch.Tensor:
+    """Per-pixel dissimilarity of int32 cost inputs: census Hamming
+    distance or absolute difference."""
+    return popcount32(a ^ b) if cost == "census" else (a - b).abs()
+
+
+def shifted_view(other: torch.Tensor, num_disparities: int, reference: str):
+    """-> ``at(d)``: the matching view of ``other`` [..., H, W] at
+    disparity d, edge-clamped in x (left reference: other[max(x - d, 0)];
+    right: other[min(x + d, W-1)]), int32."""
+    w = other.shape[-1]
+    other = other.to(torch.int32)
+    if reference == "left":
+        ext = _extend_left(other, num_disparities)
+        return lambda d: ext[..., num_disparities - d: num_disparities - d + w]
+    ext = _extend_right(other, num_disparities)
+    return lambda d: ext[..., d: d + w]
+
+
 def box_disparity(
     ref: torch.Tensor, other: torch.Tensor, num_disparities: int, window: int,
-    cost: str = "sad", reference: str = "left",
+    cost: str = "sad", reference: str = "left", coarse=None,
 ) -> DisparityResult:
     """Windowed disparity of one reference view from its cost inputs
     [..., H, W] (intensities for SAD, census codes for census): for each
-    d the per-pixel cost against the matching view, edge-clamped in x
-    (left reference: other[max(x - d, 0)]; right: other[min(x + d, W-1)]),
+    d the per-pixel cost against the matching view (``shifted_view``),
     box-summed with zero padding, then the first-minimum argmin and the
-    parabola.  The plain version of the box route's kernel."""
+    parabola.  The plain version of the box route's kernel.
+
+    ``coarse = (ref_c, other_c, weight)``, the cost inputs of the
+    2x2-summed images, adds multi-scale fusion (``scales=2``): cost(d)
+    gains weight x the box-summed coarse cost at d // 2, upsampled."""
     if cost not in ("sad", "census"):
         raise ValueError("cost must be 'sad' or 'census'")
     if reference not in ("left", "right"):
         raise ValueError(f"reference must be 'left' or 'right', got {reference!r}")
     half = window // 2
     ref = ref.to(torch.int32)
-    w = ref.shape[-1]
-    if reference == "left":
-        ext = _extend_left(other.to(torch.int32), num_disparities)
-    else:
-        ext = _extend_right(other.to(torch.int32), num_disparities)
+    h, w = ref.shape[-2:]
+    fine_at = shifted_view(other, num_disparities, reference)
+    if coarse is not None:
+        ref_c, other_c, weight = coarse
+        ref_c = ref_c.to(torch.int32)
+        coarse_at = shifted_view(other_c, -(-num_disparities // 2), reference)
+        term = {}  # the coarse term of the last d // 2 (d runs in order)
 
     def cost_at(d: int) -> torch.Tensor:
-        o = num_disparities - d if reference == "left" else d
-        win = ext[..., o: o + w]
-        c = popcount32(ref ^ win) if cost == "census" else (ref - win).abs()
-        return _aggregate(c, half)
+        c = _aggregate(pixel_cost(ref, fine_at(d), cost), half)
+        if coarse is None:
+            return c
+        if d // 2 not in term:
+            term.clear()
+            term[d // 2] = weight * upsample2(
+                _aggregate(pixel_cost(ref_c, coarse_at(d // 2), cost), half), h, w)
+        return c + term[d // 2]
 
     return argmin_subpixel_scan(cost_at, num_disparities)
 

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from stereomatching_tpu_torch.ops import sgm
-from stereomatching_tpu_torch.ops.costvolume import _extend_left, popcount32
+from stereomatching_tpu_torch.ops.costvolume import pixel_cost, shifted_view, upsample2
 
 _VOL_DTYPES = (torch.int8, torch.int16, torch.int32)
 _AGG_DTYPES = (torch.int16, torch.int32)
@@ -81,20 +81,33 @@ def _device_route(*tensors: torch.Tensor) -> bool:
 
 def sgm_volume_reference(
     ref: torch.Tensor, other: torch.Tensor, num_disparities: int,
-    cost: str = "census", dtype: torch.dtype = torch.int32,
+    cost: str = "census", dtype: torch.dtype = torch.int32, coarse=None,
 ) -> torch.Tensor:
     """Plain torch: int32 cost inputs [..., H, W] (census codes for
     census, intensities for SAD) -> vol [..., H, W, D] in ``dtype`` with
-    vol[..., y, x, d] = cost(ref[y, x], other[y, max(x - d, 0)])."""
+    vol[..., y, x, d] = cost(ref[y, x], other[y, max(x - d, 0)]).
+
+    ``coarse = (ref_c, other_c, weight)``, the cost inputs of the
+    2x2-summed images, adds multi-scale fusion (``scales=2``): each plane
+    gains weight x the coarse per-pixel cost at d // 2, upsampled
+    (ceil(D / 2) coarse planes)."""
     ref = ref.to(torch.int32)
-    w = ref.shape[-1]
-    ext = _extend_left(other.to(torch.int32), num_disparities)
-    vol = torch.empty((*ref.shape, num_disparities), dtype=dtype, device=ref.device)
+    h, w = ref.shape[-2:]
+    fine_at = shifted_view(other, num_disparities, "left")
+    if coarse is not None:
+        ref_c, other_c, weight = coarse
+        ref_c = ref_c.to(torch.int32)
+        coarse_at = shifted_view(other_c, -(-num_disparities // 2), "left")
+    # Built d-major (contiguous plane writes), then moved to [..., H, W, D].
+    vol = torch.empty((num_disparities, *ref.shape), dtype=dtype, device=ref.device)
     for d in range(num_disparities):
-        win = ext[..., num_disparities - d: num_disparities - d + w]
-        c = popcount32(ref ^ win) if cost == "census" else (ref - win).abs()
-        vol[..., d] = c.to(dtype)
-    return vol
+        c = pixel_cost(ref, fine_at(d), cost)
+        if coarse is not None:
+            if d % 2 == 0:
+                term = weight * upsample2(pixel_cost(ref_c, coarse_at(d // 2), cost), h, w)
+            c = c + term
+        vol[d] = c
+    return vol.movedim(0, -1).contiguous()
 
 
 def sgm_volume(

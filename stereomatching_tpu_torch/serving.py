@@ -10,6 +10,7 @@
     sgm = ModernMatcher(ModernParams(num_disparities=64, aggregation="sgm",
                                      cost="census", sgm_directions=8,
                                      median_filter=True, uniqueness=True))
+    sgm.warmup((1024, 1024), batch=8)      # build the kernels before serving
 
 ``Matcher`` accepts uint8 pixel arrays (brightness = pixel / 256,
 float32) or brightness floats; ``ModernMatcher`` takes 0..255 integer
@@ -18,7 +19,7 @@ pixels.  Both take single pairs [H, W] or batches [B, H, W].
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +29,18 @@ from stereomatching_tpu_torch.interop import artifacts_to_numpy
 from stereomatching_tpu_torch.models.classic import ClassicPipeline
 from stereomatching_tpu_torch.models.modern import ModernPipeline
 from stereomatching_tpu_torch.utils.device import resolve_device
+
+
+def _warmup(pipeline, device: torch.device, dtype: torch.dtype,
+            hw: Tuple[int, int], batch: Optional[int]) -> None:
+    """Run one zero batch [batch, H, W] (or one [H, W] pair) through
+    ``pipeline`` on ``device`` and wait for it: on a CUDA device this
+    builds and loads every kernel of the route."""
+    shape = (batch, *hw) if batch else tuple(hw)
+    zeros = torch.zeros(shape, dtype=dtype, device=device)
+    pipeline(zeros, zeros)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class Matcher:
@@ -49,6 +62,11 @@ class Matcher:
         if np.issubdtype(img.dtype, np.integer):
             return img.astype(np.float32) / np.float32(256.0)
         return img.astype(np.float32)
+
+    def warmup(self, hw: Tuple[int, int], batch: Optional[int] = None) -> None:
+        """Build and load the route's kernels ahead of serving by running
+        one zero batch of (H, W) pairs (or one pair) on the device."""
+        _warmup(self.pipeline, self.device, torch.float32, hw, batch)
 
     def __call__(self, left: np.ndarray, right: np.ndarray) -> Dict[str, np.ndarray]:
         lb = self._to_brightness(left)
@@ -93,6 +111,11 @@ class ModernMatcher:
         elif not np.issubdtype(img.dtype, np.integer):
             raise ValueError(f"unsupported image dtype {img.dtype}")
         return img if img.dtype == np.uint8 else img.astype(np.int32)
+
+    def warmup(self, hw: Tuple[int, int], batch: Optional[int] = None) -> None:
+        """Build and load the route's kernels ahead of serving by running
+        one zero batch of (H, W) pairs (or one pair) on the device."""
+        _warmup(self.pipeline, self.device, torch.int32, hw, batch)
 
     def __call__(self, left: np.ndarray, right: np.ndarray) -> Dict[str, np.ndarray]:
         lp = self._to_pixels(left)

@@ -293,3 +293,201 @@ def test_disparity_wrapper_checks_inputs(cuda_device):
     with pytest.raises(ValueError):
         fused_modern.disparity(x, x.cpu(), params)
     assert fused_modern.disparity(x[0], x[0], params).disparity.shape == (16, 16)
+
+
+def rand_edges(device, shape, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, 2, shape).astype(np.int32)).to(device)
+            for _ in range(2)]
+
+
+# (D, square_width): D 1 to 256 (D > W = 45 from 64 up) at windows 1 and 21,
+# and the 255 window at D <= 64.
+K8_CASES = [(1, 1), (1, 21), (30, 1), (30, 21), (64, 21), (256, 1), (256, 21), (30, 255),
+            (64, 255)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("d_sw", K8_CASES)
+@pytest.mark.parametrize("mode", MODES)
+def test_match_and_score_kernel_matches_plain(cuda_device, mode, d_sw, subpixel):
+    d, sw = d_sw
+    params = StereoParams(num_shifts=d, square_width=sw, mode=mode)
+    el, er = rand_edges(cuda_device, (2, 37, 45), 31)
+    before = fused.match_and_score.launches
+    got = fused.match_and_score(el, er, params, subpixel)
+    torch.cuda.synchronize()
+    assert fused.match_and_score.launches == before + 1
+    ref = fused.match_and_score(el.cpu(), er.cpu(), params, subpixel)
+    assert len(got) == len(ref) == 2 + subpixel
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a.cpu().view(torch.int32),
+                                                  b.view(torch.int32))
+    single = fused.match_and_score(el[1], er[1], params, subpixel)
+    for a, b in zip(single, got):
+        assert torch.equal(a, b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_match_and_score_kernel_reads_nonzero_as_edge(cuda_device, mode):
+    """Edge values other than 0 and 1 (2 is ghost mode's left sentinel,
+    256 wraps to 0 as a byte) are edges on the card as on the CPU."""
+    params = StereoParams(num_shifts=30, square_width=5, mode=mode)
+    rng = np.random.default_rng(33)
+    maps = rng.choice(np.array([0, 0, 0, 1, 2, 3, 256, -1], np.int32), (2, 2, 37, 45))
+    el, er = (torch.from_numpy(m).to(cuda_device) for m in maps)
+    got = fused.match_and_score(el, er, params, True)
+    ref = fused.match_and_score(el.cpu(), er.cpu(), params, True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_match_and_score_wrapper_checks_inputs(cuda_device):
+    el, er = rand_edges(cuda_device, (2, 37, 45), 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.match_and_score(el, er, StereoParams(num_shifts=256, square_width=255))
+    with pytest.raises(ValueError):
+        fused.match_and_score(el, er, StereoParams(num_shifts=8, square_width=257))
+    with pytest.raises(ValueError):
+        fused.match_and_score(el.float(), er.float(), StereoParams(num_shifts=8))
+    with pytest.raises(ValueError):
+        fused.match_and_score(el.transpose(1, 2), er.transpose(1, 2), StereoParams(num_shifts=8))
+    with pytest.raises(ValueError):
+        fused.match_and_score(el, er.cpu(), StereoParams(num_shifts=8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_shifts_sw", [((3, 48, 64), 16, 21), ((2, 37, 45), 80, 5)])
+@pytest.mark.parametrize("mode", MODES)
+def test_match_score_edges_subpixel_kernel_matches_plain(cuda_device, mode, shape_shifts_sw):
+    shape, d, sw = shape_shifts_sw
+    params = StereoParams(num_shifts=d, square_width=sw, mode=mode, edge_rule="exact")
+    rng = np.random.default_rng(13)
+    left, right = (torch.from_numpy(rng.integers(0, 256, shape).astype(np.float32) / 256.0)
+                   .to(cuda_device) for _ in range(2))
+    got = fused.match_score_edges(left, right, params, subpixel=True)
+    torch.cuda.synchronize()
+    ref = fused.match_score_edges_reference(left, right, params, subpixel=True)
+    assert len(got) == 5 and got[4].dtype == torch.float32
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(fused.match_score_edges(left, right, params), got):
+        assert torch.equal(a, b)
+
+
+def knife_edge_brightness(seed, shape=(3, 40, 56)):
+    """u8 / 256 brightness on which the reference rule's decision
+    |avg_a - avg_b| > thr * overall is a tie in real arithmetic for thr
+    0.2, 0.15 and 0.1: 3-pixel strips of k and k' with k / k' = (2 + thr)
+    / (2 - thr) (11:9, 43:37, 21:19), so only the float rounding of each
+    op decides; strips run along rows and columns, with random pixels
+    between them."""
+    rng = np.random.default_rng(seed)
+    b, h, w = shape
+    img = rng.integers(0, 256, shape)
+    ratios = [(11, 9), (43, 37), (21, 19)]
+    for i in range(b):
+        p, q = ratios[i % 3]
+        for x in range(0, w - 2, 4):
+            m = rng.integers(1, 256 // p + 1)
+            img[i, :, x], img[i, :, x + 2] = p * m, q * m
+        for y in range(h // 2, h - 2, 5):
+            m = rng.integers(1, 256 // p + 1)
+            img[i, y, :], img[i, y + 2, :] = q * m, p * m
+    return img.astype(np.float32) / np.float32(256.0), [0.2, 0.15, 0.1][: b]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_reference_edges_on_card_equal_cpu_at_knife_edges(cuda_device, mode):
+    """The reference rule's float ops (/3, /2 as IEEE divisions by device
+    scalars, one product, one clamp) decide every knife-edge pixel as the
+    CPU does."""
+    from stereomatching_tpu_torch.ops.edges import find_edges
+
+    for seed in range(4):
+        img, thresholds = knife_edge_brightness(seed)
+        for i, thr in enumerate(thresholds):
+            x = torch.from_numpy(img[i])
+            got = find_edges(x.to(cuda_device), thr, mode, "reference")
+            assert torch.equal(got.cpu(), find_edges(x, thr, mode, "reference")), (seed, thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_reference_rule_pipeline_kernels_match_plain(cuda_device, mode, subpixel):
+    """The classic pipeline with the reference rule launches K8 (not K1)
+    and equals the CPU's plain route on every artifact."""
+    from stereomatching_tpu_torch.models import classic
+
+    params = StereoParams(num_shifts=24, square_width=9, times=6, mode=mode)
+    img, _ = knife_edge_brightness(7)
+    left = torch.from_numpy(img)
+    right = torch.from_numpy(np.roll(img, 3, axis=2))
+    k1, k8 = fused.match_score_edges.launches, fused.match_and_score.launches
+    got = classic.classic_forward_batched(left.to(cuda_device), right.to(cuda_device), params,
+                                          subpixel=subpixel)
+    torch.cuda.synchronize()
+    assert fused.match_score_edges.launches == k1
+    assert fused.match_and_score.launches == k8 + 1
+    ref = classic.classic_forward_batched(left, right, params, subpixel=subpixel)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k].cpu().view(torch.int32), ref[k].view(torch.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_collect_pipeline_finishes_through_k2(cuda_device, mode):
+    """The collect pipeline's diffusion runs as K2 on the card, and every
+    artifact, the per-shift planes included, equals the CPU's."""
+    from stereomatching_tpu_torch.models import classic
+    from stereomatching_tpu_torch.ops import fused_diffusion
+
+    params = StereoParams(num_shifts=12, square_width=7, times=5, mode=mode)
+    img, _ = knife_edge_brightness(8)
+    left, right = torch.from_numpy(img[0]), torch.from_numpy(np.roll(img[0], 2, axis=1))
+    pipe = classic.build_classic_collect_pipeline(params)
+    before = fused_diffusion.fill_web_holes_range.launches
+    got = pipe(left.to(cuda_device), right.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fused_diffusion.fill_web_holes_range.launches == before + params.times
+    ref = pipe(left, right)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k].cpu(), ref[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw",[dict(aggregation="sgm", cost="census", num_disparities=64),
+                                dict(aggregation="sgm", cost="sad", num_disparities=11,
+                                     sgm_directions=8, coarse_weight=4, uniqueness=True),
+                                dict(aggregation="box", cost="census", window=5,
+                                     num_disparities=11)])
+def test_scales2_kernels_match_plain(cuda_device, kw):
+    params = ModernParams(scales=2, **kw)
+    rng = np.random.default_rng(26)
+    left = rng.integers(0, 256, (2, 45, 77)).astype(np.int32)
+    right = np.roll(left, -3, axis=2)
+    lt, rt = (torch.from_numpy(x).to(cuda_device) for x in (left, right))
+    got = modern.modern_forward(lt, rt, params)
+    ref = modern.modern_forward_reference(lt, rt, params)
+    cpu = modern.modern_forward_reference(lt.cpu(), rt.cpu(), params)
+    assert sorted(got) == sorted(ref) == sorted(cpu)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k].cpu(), cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_matcher_warmup_launches_the_route(cuda_device):
+    from stereomatching_tpu_torch.serving import Matcher
+
+    before = fused.match_and_score.launches
+    Matcher(StereoParams(num_shifts=8, square_width=5), device=cuda_device).warmup(
+        (40, 56), batch=2)
+    assert fused.match_and_score.launches == before + 1

@@ -51,10 +51,15 @@ def test_match_score_edges_cpu_matches_jax(mode, shifts_sw):
 
 
 def test_match_score_edges_rejects_unported_options():
+    """The sub-pixel plane, once unported, is the fifth output and equals
+    the plain version's; the reference edge rule is still refused."""
     left, right = (torch.from_numpy(x) for x in brightness_batch(1))
     params = params_from_jax(StereoParams(num_shifts=8, square_width=7, edge_rule="exact"))
-    with pytest.raises(NotImplementedError):
-        fused.match_score_edges(left, right, params, subpixel=True)
+    got = fused.match_score_edges(left, right, params, subpixel=True)
+    ref = fused.match_score_edges_reference(left, right, params, subpixel=True)
+    assert len(got) == len(ref) == 5 and got[4].dtype == torch.float32
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         fused.match_score_edges(left, right, params.replace(edge_rule="reference"))
 

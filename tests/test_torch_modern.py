@@ -135,8 +135,8 @@ def test_modern_matcher_cpu_matches_jax():
 
 
 def test_modern_pipeline_module_and_unported_routes():
-    """The module form, and the routes: scales=2 is still unported; the
-    box route and 8 paths, unported before, now run."""
+    """The module form, and the routes: the box route, 8 paths and
+    scales=2 on both routes, unported before, now run."""
     params = params_from_jax(jax_params(cost="sad", num_disparities=8))
     pipe = modern.build_modern_pipeline(params)
     assert isinstance(pipe, torch.nn.Module)
@@ -150,14 +150,13 @@ def test_modern_pipeline_module_and_unported_routes():
         pipe(lu.float(), ru.float())
     with pytest.raises(ValueError):
         pipe(lu, ru[:, :, :20])
-    p = params_from_jax(JModernParams(aggregation="sgm", scales=2))
-    with pytest.raises(NotImplementedError, match="scales=2"):
-        modern.modern_forward(lu, ru, p)
-    with pytest.raises(NotImplementedError, match="scales=2"):
-        modern.ModernPipeline(p)
-    for kw in (dict(aggregation="box", num_disparities=8), dict(aggregation="sgm",
-                                                                 sgm_directions=8,
-                                                                 num_disparities=8)):
+    p = params_from_jax(JModernParams(aggregation="sgm", scales=2, num_disparities=8))
+    assert torch.equal(modern.modern_forward(lu, ru, p)["disparity"],
+                       modern.ModernPipeline(p)(lu, ru)["disparity"])
+    for kw in (dict(aggregation="box", num_disparities=8),
+               dict(aggregation="sgm", sgm_directions=8, num_disparities=8),
+               dict(aggregation="box", scales=2, num_disparities=8),
+               dict(aggregation="sgm", scales=2, num_disparities=8)):
         p = params_from_jax(JModernParams(**kw))
         out = modern.ModernPipeline(p)(lu, ru)
         assert sorted(out) == sorted(batched)

@@ -170,7 +170,10 @@ def test_import_does_not_load_jax():
         "from stereomatching_tpu_torch import (\n"
         "    Matcher, ClassicPipeline, ModernMatcher, ModernPipeline, ModernParams)\n"
         "import stereomatching_tpu_torch.ops.fused_modern\n"
-        "assert 'stereomatching_tpu_torch.ops.fused_modern' in names, names\n"
+        "import stereomatching_tpu_torch.cli, stereomatching_tpu_torch.utils.imageio\n"
+        "import stereomatching_tpu_torch.utils.artifacts\n"
+        "for m in ('ops.fused_modern', 'cli', 'utils.imageio', 'utils.artifacts'):\n"
+        "    assert 'stereomatching_tpu_torch.' + m in names, names\n"
         "assert len(names) >= 20, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'stereomatching_tpu' or m.startswith('stereomatching_tpu.'))\n"
@@ -226,8 +229,8 @@ def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
     import torch.utils.cpp_extension as cpp_ext
 
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
-    for name in ("match_score_edges", "sgm_volume", "sgm_directional", "sgm_tail",
-                 "fill_invalid", "disparity"):
+    for name in ("match_score_edges", "match_and_score", "sgm_volume", "sgm_directional",
+                 "sgm_tail", "fill_invalid", "disparity"):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build(name)
     assert not (tmp_path / "build").exists() or not os.listdir(tmp_path / "build")

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port on one NVIDIA GPU, at the
 bench shapes: the classic pipeline (ghost mode, exact rule, 1024x1024,
-64 shifts) or one route of the modern pipeline at 1024x1024, D=64: the
-SGM route (census, 4 paths), the box route (``ModernParams()``: SAD,
-window 9) or the 8-direction quality stack (census, 8 paths, median,
+64 shifts), its reference-rule route (the CLI's default: wrap mode, the
+reference edge rule) or one route of the modern pipeline at 1024x1024,
+D=64: the SGM route (census, 4 paths), the box route (``ModernParams()``:
+SAD, window 9) or the 8-direction quality stack (census, 8 paths, median,
 uniqueness).
 
     python3 tools/profile_torch_pipeline.py                   # classic
+    python3 tools/profile_torch_pipeline.py --pipeline reference  # reference rule
     python3 tools/profile_torch_pipeline.py --pipeline sgm    # SGM route
     python3 tools/profile_torch_pipeline.py --pipeline box    # box route
     python3 tools/profile_torch_pipeline.py --pipeline sgm8   # 8-direction stack
@@ -22,6 +24,9 @@ reading:
   (total, share, per launch) and the device's busy share (union of the
   kernel intervals over the span from the first kernel's start to the
   last one's end);
+- a split of one batch-8 forward into its stages, each timed with CUDA
+  events (exact rule: K1, K2, contour; reference rule: the torch edge
+  maps of both images, K8, K2, contour);
 - ``Matcher`` (uint8 numpy in, numpy out) at batch 8, three runs, and
   the split of one run into host u8->f32, host-to-device copy, pipeline
   and device-to-host copy + numpy, each step synchronised.
@@ -250,7 +255,31 @@ def main_modern(route: str) -> None:
               for k, v in parts.items()), flush=True)
 
 
-def main_classic() -> None:
+def classic_stages(params, lt, rt) -> dict:
+    """The classic route's stages on the batch (lt, rt): name -> a
+    callable running that stage alone."""
+    from stereomatching_tpu_torch.ops import fused, fused_diffusion
+    from stereomatching_tpu_torch.ops.contour import contour_bands
+    from stereomatching_tpu_torch.ops.edges import find_edges
+
+    stages = {}
+    if params.edge_rule == "exact":
+        winner = fused.match_score_edges(lt, rt, params)[1]
+        stages["K1 match_score_edges"] = lambda: fused.match_score_edges(lt, rt, params)
+    else:
+        el, er = (find_edges(x, params.threshold, params.mode, "reference") for x in (lt, rt))
+        winner = fused.match_and_score(el, er, params)[1]
+        stages["reference-rule edges x2 (torch)"] = lambda: [
+            find_edges(x, params.threshold, params.mode, "reference") for x in (lt, rt)]
+        stages["K8 match_and_score"] = lambda: fused.match_and_score(el, er, params)
+    web, mn, mx = fused_diffusion.fill_web_holes_range(winner, params.times)
+    stages[f"K2 fill_web_holes_range x{params.times}"] = (
+        lambda: fused_diffusion.fill_web_holes_range(winner, params.times))
+    stages["contour (torch)"] = lambda: contour_bands(web, params.lines, mn, mx)
+    return stages
+
+
+def main_classic(rule: str) -> None:
     import numpy as np
     import torch
 
@@ -262,11 +291,12 @@ def main_classic() -> None:
     smi = card()
     dev = torch.device("cuda", 0)
     n = SIZE
-    params = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
+    mode = BoundaryMode.GHOST if rule == "exact" else BoundaryMode.WRAP
+    params = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule=rule)
     pipe = ClassicPipeline(params)
     rng = np.random.default_rng(SEED)
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"ghost, exact, {n}x{n}, D={SHIFTS}, random u8 pairs", flush=True)
+          f"{mode.value}, {rule}, {n}x{n}, D={SHIFTS}, random u8 pairs", flush=True)
 
     def batch_u8(b):
         return (rng.integers(0, 256, (b, n, n), dtype=np.uint8),
@@ -296,6 +326,13 @@ def main_classic() -> None:
 
     three()
     profile_kernels(three, "batch 8 x3")
+
+    stages = classic_stages(params, lt, rt)
+    times = {k: event_ms(fn, 5) for k, fn in stages.items()}
+    whole = event_ms(lambda: pipe(lt, rt), 5)
+    print(f"[stages batch 8] forward {whole:.3f} ms; " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / whole:.1f}%)" for k, v in times.items()), flush=True)
+    del stages
 
     matcher = Matcher(params, device=dev)
     lu, ru = batch_u8(8)
@@ -328,15 +365,16 @@ def main_classic() -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--pipeline", choices=("classic", *MODERN), default="classic")
+    parser.add_argument("--pipeline", choices=("classic", "reference", *MODERN),
+                        default="classic")
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, str(ROOT))
-    if args.pipeline == "classic":
-        main_classic()
+    if args.pipeline in ("classic", "reference"):
+        main_classic("exact" if args.pipeline == "classic" else "reference")
     else:
         main_modern(args.pipeline)
 
