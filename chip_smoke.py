@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stereomatching_tpu_torch``) on one
-NVIDIA GPU: builds the eight kernels from ``csrc/``, holds each against its
-plain torch version on the card, drives the classic pipeline through
+NVIDIA GPU: builds the kernels of the eight ``csrc/`` sources, holds each
+against its plain torch version on the card, drives the classic pipeline through
 ``Matcher`` (exact and reference edge rules) and the CLI, and the modern
 pipeline's three routes through ``ModernMatcher`` (4-path SGM, the box
 default, the 8-direction quality stack) and ``scales=2`` through the CLI,
@@ -15,7 +15,11 @@ classic slice, classic times, K3-K6 vs plain, the SGM slice, SGM times,
 K7 vs plain, K4's diagonals vs plain, the box slice, the 8-direction
 slice, box and 8-direction times, K8 vs plain, K1's sub-pixel plane vs
 plain, the reference-rule classic slice, the CLI (classic and modern
-``scales=2``), reference-rule and ``scales=2`` times.
+``scales=2``), reference-rule and ``scales=2`` times; then the sharded
+tier on meshes whose shards all live on ``cuda:0``: K9 vs plain on the
+shard blocks, K4's seeded chain vs plain and vs the unsharded launch, the
+sharded classic slice (``Matcher(mesh=...)``), the sharded modern slices
+(SGM, 8 directions, box), the CLI's ``--tier sharded``, sharded times.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -761,6 +765,7 @@ def main() -> None:
         cli_wall, cli_elapsed = run_cli(lpng, rpng, "--shifts", str(SHIFTS),
                                         "--outdir", str(tmp / "classic"))
         ppms = sorted(f.name for f in (tmp / "classic").iterdir())
+        cli_ppms = {f: (tmp / "classic" / f).read_bytes() for f in ppms}
         want_ppms = {"edges-1", "edges-2", "score_best-0", "web-1", "web-2", "output-0"}
         check(ppms == sorted(f"{n}.ppm" for n in want_ppms), f"CLI wrote {ppms}")
         for name, v in plain.items():
@@ -838,6 +843,275 @@ def main() -> None:
           f"(batch {BATCH}; launches {s2_counts}); CLI {cli_wall:.3f} s wall (classic), "
           f"{cli2_wall:.3f} s (scales=2 SGM)", flush=True)
 
+    # ------------------------------------------------ the sharded tier
+    # Meshes whose shards all live on cuda:0: every shard of a block is
+    # stacked, so each stage is one launch over all of them, and the halo
+    # exchanges, the ghost masks, K9 on real halo blocks and the seeded K4
+    # chain run on the card at full size.
+    from stereomatching_tpu_torch.parallel import (
+        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+    from stereomatching_tpu_torch.parallel.mesh import run as run_blocks
+    from stereomatching_tpu_torch.parallel.pipeline import prehalo_blocks, shard_extent
+
+    def card_mesh(data, rows, cols=None):
+        return make_mesh(data=data, rows=rows, cols=cols,
+                         devices=[dev] * (data * rows * (cols or 1)))
+
+    def k9_inputs(mesh, left, right, params):
+        """K9's keyword arguments on the blocks the sharded classic
+        slice gives it (one block: every shard on cuda:0)."""
+        bl, hs, ws = shard_extent(tuple(left.shape), mesh)
+        return run_blocks(mesh, bl, hs, ws, lambda sh: prehalo_blocks(
+            sh, sh.scatter(left), sh.scatter(right), params)[2])[0]
+
+    # Phase 20: K9 against its plain version on the shard blocks of a data
+    # 2 x rows 4 mesh (batch 8: 32 blocks of 256 + 2 * 10 rows), both modes
+    # and both edge rules, on the classic slice's pairs (shifted textures
+    # and two random pairs), then a rows 2 x cols 2 mesh (pre-extended
+    # blocks).  Bitwise.
+    k9_err, notes = 0, []
+    k9_cases = [((2, 4, None), mode, rule) for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP)
+                for rule in ("exact", "reference")]
+    k9_cases += [((2, 2, 2), BoundaryMode.GHOST, "exact"), ((2, 2, 2), BoundaryMode.WRAP, "exact")]
+    for shape, mode, rule in k9_cases:
+        p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule=rule)
+        kw = k9_inputs(card_mesh(*shape), lt, rt, p)
+        got = fused.match_and_score_prehalo(params=p, **kw)
+        ref = fused.match_and_score_prehalo_reference(params=p, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("best", "winner"), got, ref):
+            err = max_abs_diff(a, b)
+            k9_err = max(k9_err, err)
+            check(same(a, b), f"K9 {shape} {mode.value} {rule} {name} differs from plain "
+                  f"(max |d| {err})")
+        notes.append(f"{'x'.join(str(x) for x in shape if x)} {mode.value} {rule}: "
+                     f"{tuple(kw['l_blk'].shape)}")
+    print(f"[20 K9] shard blocks of the classic slice's {BATCH}x{SIZE}x{SIZE} pairs, D={SHIFTS}, "
+          f"sw=21: best and winner == plain bitwise ({'; '.join(notes)}; max |d| {k9_err})",
+          flush=True)
+
+    # Phase 21: K4's seeded chain at rows 4 (4 x 256-row shards) on a
+    # census int8 volume of 4 random 1024x1024 pairs, D=64, into int16:
+    # each shard's launch against the plain seeded pass (L and carry), and
+    # the stitched chain against one unsharded launch, for the column
+    # paths and both diagonal families, both walks.
+    pix = [torch.from_numpy(rand_u8(4, SIZE, SIZE)).to(dev).to(torch.int32) for _ in range(2)]
+    codes = [costvolume.census_transform(x).contiguous() for x in pix]
+    vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", torch.int8)
+    del pix, codes
+    hs4 = SIZE // 4
+    chain_err, n_seeded = 0, 0
+    for direction in (sgm.Y, sgm.DIAG_PLUS, sgm.DIAG_MINUS):
+        for reverse in (False, True):
+            full = torch.empty(vol.shape, dtype=torch.int16, device=dev)
+            fused_sgm.sgm_directional(vol, full, 8, 96, direction, reverse, accumulate=False)
+            agg = torch.empty_like(full)
+            seed = seed_ref = None
+            for j in (reversed(range(4)) if reverse else range(4)):
+                rows_j = slice(j * hs4, (j + 1) * hs4)
+                part = vol[:, rows_j].contiguous()
+                a, seed = fused_sgm.sgm_directional(
+                    part, torch.empty(part.shape, dtype=torch.int16, device=dev), 8, 96,
+                    direction, reverse, False, seed=seed, with_carry=True)
+                n_seeded += 1
+                ref, seed_ref = fused_sgm.sgm_directional_reference(
+                    part, 8, 96, direction, reverse, seed=seed_ref, with_carry=True)
+                for what, x, y in (("L", a.to(torch.int32), ref), ("carry", seed, seed_ref)):
+                    err = max_abs_diff(x, y)
+                    chain_err = max(chain_err, err)
+                    check(same(x, y), f"seeded K4 direction {direction} reverse {reverse} "
+                          f"shard {j} {what} differs from plain (max |d| {err})")
+                agg[:, rows_j] = a
+                del part, ref
+            err = max_abs_diff(agg, full)
+            chain_err = max(chain_err, err)
+            check(same(agg, full), f"seeded K4 chain (direction {direction}, reverse {reverse}) "
+                  f"differs from the unsharded launch (max |d| {err})")
+            del full, agg
+    torch.cuda.synchronize()
+    errs["sgm_directional"] = max(errs["sgm_directional"], chain_err)
+    print(f"[21 K4 seeded chain] 4x{SIZE}x{SIZE}, D={SHIFTS}, census int8 volume, int16 "
+          f"aggregate, rows 4: {n_seeded} seeded launches (columns and both diagonal families, "
+          f"both walks) == the plain seeded passes (L and carry) and, stitched, == the "
+          f"unsharded launch bitwise (max |d| {chain_err})", flush=True)
+    del vol
+
+    # Phase 22: the sharded classic slice through Matcher(mesh=...), data 2
+    # x rows 4 on cuda:0, batch 8 (the classic slice's pairs), ghost/exact
+    # and wrap/reference; every artifact against the single-device
+    # ClassicPipeline on the card, the counters set to 0 before each run.
+    cl_left_u8, cl_right_u8 = left_u8, right_u8  # the classic pairs (phase 18's first)
+    scenes_cli = (cl_left_u8[0], cl_right_u8[0])
+    sharded_wrappers = {"match_and_score_prehalo": fused.match_and_score_prehalo,
+                        "fill_web_holes_step": fused_diffusion.fill_web_holes_step,
+                        **classic_wrappers}
+    sh_counts, notes = {}, []
+    for mode, rule in ((BoundaryMode.GHOST, "exact"), (BoundaryMode.WRAP, "reference")):
+        p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule=rule)
+        smatcher = Matcher(p, mesh=card_mesh(2, 4))
+        for fn in sharded_wrappers.values():
+            fn.launches = 0
+        arts = smatcher(left_u8, right_u8)
+        counts = {name: fn.launches for name, fn in sharded_wrappers.items()}
+        want = {"match_and_score_prehalo": 1, "fill_web_holes_step": p.times - 1,
+                "match_score_edges": 0, "match_and_score": 0, "fill_web_holes_range": 0}
+        check(counts == want, f"sharded classic {mode.value} launches {counts}, want {want}")
+        single = {k: v.cpu().numpy() for k, v in ClassicPipeline(p)(lt, rt).items()}
+        check(sorted(arts) == sorted(single), f"sharded artifact keys {sorted(arts)}")
+        for k in single:
+            check(arts[k].dtype == single[k].dtype and np.array_equal(arts[k], single[k]),
+                  f"sharded classic {mode.value} {k} differs from the single-device pipeline")
+        hit = [float((arts["web-1"][i] == scenes[i][2] + 1)[region_interiors(
+            SIZE, p.half + SHIFTS)].mean()) for i in range(4)]
+        check(min(hit) >= 0.99, f"sharded classic true disparity on {hit}")
+        sh_counts.setdefault("classic", counts)
+        notes.append(f"{mode.value}/{rule}: true disparity on "
+                     f"{', '.join(f'{h:.4%}' for h in hit)}")
+    launches["match_and_score_prehalo"] = sh_counts["classic"]["match_and_score_prehalo"]
+    print(f"[22 sharded classic slice] Matcher(mesh=make_mesh(data=2, rows=4, devices="
+          f"['cuda:0'] * 8)) on {BATCH}x{SIZE}x{SIZE}: {len(arts)} artifacts == the "
+          f"single-device ClassicPipeline bitwise ({'; '.join(notes)}); kernel launches "
+          f"{sh_counts['classic']}", flush=True)
+    del arts, single
+
+    # Phase 23: the sharded modern slices through ModernMatcher(mesh=...) at
+    # rows 4 on the SGM slice's batch: bench.py's SGM params, the
+    # 8-direction quality stack, the box default; each against the
+    # single-device ModernPipeline on the card, with the launch counters.
+    scenes = [shifted_pair(rng, SIZE, block, SHIFTS, sign=1) for block in (2, 4, 2, 4, 8, 16)]
+    scenes += [(rand_u8(SIZE, SIZE), rand_u8(SIZE, SIZE), None) for _ in range(2)]
+    left_u8 = np.stack([a for a, _, _ in scenes])
+    right_u8 = np.stack([b for _, b, _ in scenes])
+    pix = [torch.from_numpy(x).to(dev).to(torch.int32) for x in (left_u8, right_u8)]
+    modern_wrappers = {**all_wrappers, "fill_invalid_step": fused_diffusion.fill_invalid_step}
+    mod_counts, notes = {}, []
+    for label, p, floor, margin, want in (
+        ("SGM", mparams, SGM_TRUTH_SHARE, SHIFTS,
+         {"disparity": 0, "sgm_volume": 1, "sgm_directional": 2 + 2 * 4, "sgm_tail": 1,
+          "fill_invalid": 0, "fill_invalid_step": 16}),
+        ("8-direction", qparams, SGM8_TRUTH_SHARE, SHIFTS,
+         {"disparity": 0, "sgm_volume": 1, "sgm_directional": 2 + 3 * 2 * 4, "sgm_tail": 1,
+          "fill_invalid": 0, "fill_invalid_step": 16}),
+        ("box", bparams, BOX_TRUTH_SHARE, SHIFTS + bparams.window // 2,
+         {"disparity": 2, "sgm_volume": 0, "sgm_directional": 0, "sgm_tail": 0,
+          "fill_invalid": 0, "fill_invalid_step": 16}),
+    ):
+        mm = ModernMatcher(p, mesh=card_mesh(1, 4))
+        for fn in modern_wrappers.values():
+            fn.launches = 0
+        out = mm(left_u8, right_u8)
+        counts = {name: fn.launches for name, fn in modern_wrappers.items()}
+        check(counts == want, f"sharded {label} launches {counts}, want {want}")
+        single = {k: v.cpu() for k, v in modern.ModernPipeline(p)(*pix).items()}
+        check(sorted(out) == sorted(single), f"sharded {label} keys {sorted(out)}")
+        for k, v in single.items():
+            check(same(torch.from_numpy(out[k]), v),
+                  f"sharded {label} plane {k} differs from the single-device pipeline")
+        truth = [float((out["disparity"][i] == scenes[i][2])[region_interiors(SIZE, margin)]
+                       .mean()) for i in range(4)]
+        check(min(truth) >= floor, f"sharded {label}: true disparity on {truth}")
+        mod_counts[label] = counts
+        notes.append(f"{label}: {len(out)} planes, true disparity on "
+                     f"{', '.join(f'{h:.4%}' for h in truth)}, launches {counts}")
+    print(f"[23 sharded modern slices] ModernMatcher(mesh=make_mesh(data=1, rows=4, devices="
+          f"['cuda:0'] * 4)) on {BATCH}x{SIZE}x{SIZE} (6 shifted textures, 2 random) == the "
+          f"single-device ModernPipeline bitwise; {'; '.join(notes)}", flush=True)
+    del out, single
+
+    # Phase 24: the CLI's --tier sharded in a subprocess on the phase-18
+    # pair (one GPU: one row shard): the default classic run's PPMs byte
+    # for byte against phase 18's, the modern SGM run's disparity.npz
+    # against the single-device pipeline.
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        write_png_gray(str(tmp / "L.png"), scenes_cli[0])
+        write_png_gray(str(tmp / "R.png"), scenes_cli[1])
+        lpng, rpng = str(tmp / "L.png"), str(tmp / "R.png")
+        cli3_wall, _ = run_cli(lpng, rpng, "--shifts", str(SHIFTS), "--tier", "sharded",
+                               "--outdir", str(tmp / "classic"))
+        got_ppms = {f.name: f.read_bytes() for f in sorted((tmp / "classic").iterdir())}
+        check(got_ppms == cli_ppms, "CLI --tier sharded PPMs differ from phase 18's")
+        cli4_wall, _ = run_cli(lpng, rpng, "--pipeline", "modern", "--aggregation", "sgm",
+                               "--cost", "census", "--shifts", str(SHIFTS), "--tier", "sharded",
+                               "--outdir", str(tmp / "modern"))
+        want = modern.ModernPipeline(mparams)(
+            *(torch.from_numpy(x).to(dev).to(torch.int32) for x in scenes_cli))
+        with np.load(tmp / "modern" / "disparity.npz") as z:
+            check(sorted(z.files) == sorted(want), f"sharded disparity.npz keys {z.files}")
+            for k, v in want.items():
+                check(same(torch.from_numpy(z[k]), v.cpu()),
+                      f"CLI --tier sharded modern {k} differs from the single-device pipeline")
+    print(f"[24 CLI sharded] --tier sharded (1 visible GPU: rows 1): classic default run, six "
+          f"PPMs == phase 18's byte for byte, {cli3_wall:.3f} s wall; --pipeline modern "
+          f"--aggregation sgm --cost census: disparity.npz == the single-device pipeline, "
+          f"{cli4_wall:.3f} s wall", flush=True)
+
+    # Phase 25: sharded times (CUDA events).  K9 per batch of 8 (the data 2
+    # x rows 4 ghost/exact blocks of the classic slice) against its plain
+    # version; the seeded 4-path SGM route's K4 launches (2 horizontal over
+    # the block + the rows-4 column chain) against the unsharded 4-path
+    # forward on the same int8 volume; the sharded classic, SGM and
+    # 8-direction pipelines per pair at batch 8 beside the single-device
+    # ones on the same device-resident inputs.
+    from stereomatching_tpu_torch.parallel.modern import _sgm_chain
+
+    cl_lt = torch.from_numpy(u8_to_brightness(cl_left_u8)).to(dev)
+    cl_rt = torch.from_numpy(u8_to_brightness(cl_right_u8)).to(dev)
+    xp = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
+    mesh24 = card_mesh(2, 4)
+    kw = k9_inputs(mesh24, cl_lt, cl_rt, xp)
+    k9_ms = cuda_time_ms(lambda: fused.match_and_score_prehalo(params=xp, **kw), 5)
+    k9_plain_ms = cuda_time_ms(lambda: fused.match_and_score_prehalo_reference(params=xp, **kw), 1)
+    blk_px = kw["l_blk"].shape[0] * (kw["l_blk"].shape[1] - 2 * kw["halo"]) * SIZE
+    halo_px = kw["l_blk"].shape[0] * 2 * xp.half * SIZE
+    # K9: both halo blocks in (4 B per cell), best and winner out (8 B per
+    # pixel).  Per shift, ~10 int ops per kept pixel as K8 (match, column
+    # and row box sums, score, argmax); the 2 x half halo rows of a shard
+    # that its windows reach need only the match and the running column
+    # sum: a compare and an add as the row enters the sum, a compare and
+    # a subtract as it leaves, 4 ops per cell.
+    k9_bound = bound(4 * (kw["l_blk"].numel() + kw["r_blk"].numel()) + 8 * blk_px,
+                     (10 * blk_px + 4 * halo_px) * SHIFTS, INT32_OPS_PER_S)
+    del kw
+    codes = [costvolume.census_transform(x).contiguous() for x in pix]
+    vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", torch.int8)
+    del codes
+    sgm_mesh = card_mesh(1, 4)
+    blk_vol = vol.reshape(BATCH, 4, hs4, SIZE, SHIFTS).transpose(0, 1).contiguous().reshape(
+        4 * BATCH, hs4, SIZE, SHIFTS)
+    sh4 = run_blocks(sgm_mesh, BATCH, hs4, SIZE, lambda sh: sh)[0]
+
+    def chain_4path():
+        agg = torch.empty(blk_vol.shape, dtype=torch.int16, device=dev)
+        fused_sgm.sgm_directional(blk_vol, agg, 8, 96, sgm.X, False, accumulate=False)
+        fused_sgm.sgm_directional(blk_vol, agg, 8, 96, sgm.X, True, accumulate=True)
+        _sgm_chain(sh4, blk_vol, agg, sgm.Y, 8, 96)
+        return agg
+
+    chain_ms = cuda_time_ms(chain_4path, 3)
+    unsharded_ms = cuda_time_ms(lambda: fused_sgm.sgm_aggregate_paths(vol, 8, 96, torch.int16), 3)
+    got = chain_4path().reshape(4, BATCH, hs4, SIZE, SHIFTS).transpose(0, 1).reshape(vol.shape)
+    check(same(got, fused_sgm.sgm_aggregate_paths(vol, 8, 96, torch.int16)),
+          "the sharded 4-path K4 route differs from the unsharded 4-path forward")
+    del got, blk_vol, vol
+    sc_pipe = build_sharded_pipeline(xp, mesh24)
+    sc_ms = cuda_time_ms(lambda: sc_pipe(cl_lt, cl_rt), 3) / BATCH
+    c_ms = cuda_time_ms(lambda: ClassicPipeline(xp)(cl_lt, cl_rt), 3) / BATCH
+    ssgm, s8 = (build_sharded_modern_pipeline(p, sgm_mesh) for p in (mparams, qparams))
+    ssgm_ms = cuda_time_ms(lambda: ssgm(*pix), 3) / BATCH
+    sgm1_ms = cuda_time_ms(lambda: modern.ModernPipeline(mparams)(*pix), 3) / BATCH
+    s8_ms = cuda_time_ms(lambda: s8(*pix), 3) / BATCH
+    sgm8_1_ms = cuda_time_ms(lambda: modern.ModernPipeline(qparams)(*pix), 3) / BATCH
+    print(f"[25 sharded times] {smi}: match_and_score_prehalo {k9_ms:.4f} ms vs plain "
+          f"{k9_plain_ms:.4f} ms (bound {k9_bound[0]:.4f}, {k9_bound[1]}; per batch of {BATCH}, "
+          f"data 2 x rows 4 blocks); sharded 4-path K4 route (2 horizontal + rows-4 seeded "
+          f"column chain, {2 + 2 * 4} launches) {chain_ms:.4f} ms vs the unsharded 4-path "
+          f"forward {unsharded_ms:.4f} ms ({chain_ms / unsharded_ms:.3f}x); sharded classic "
+          f"(ghost, exact, data 2 x rows 4) {sc_ms:.4f} ms/pair vs single device {c_ms:.4f}; "
+          f"sharded SGM (rows 4) {ssgm_ms:.4f} ms/pair vs {sgm1_ms:.4f}; sharded 8-direction "
+          f"(rows 4) {s8_ms:.4f} ms/pair vs {sgm8_1_ms:.4f} (batch {BATCH}, device-resident)",
+          flush=True)
+
     src = "stereomatching_tpu_torch/csrc/"
     rows = [
         ("match_score_edges", "match_score_edges.cu", "stereomatching_tpu/ops/fused.py:1044",
@@ -857,6 +1131,8 @@ def main() -> None:
          k7_err, k7_ms, k7_plain_ms, k7_bound),
         ("match_and_score", "match_and_score.cu", "stereomatching_tpu/ops/fused.py:696",
          k8_err, k8_ms, k8_plain_ms, k8_bound),
+        ("match_and_score_prehalo", "match_and_score.cu", "stereomatching_tpu/ops/fused.py:757",
+         k9_err, k9_ms, k9_plain_ms, k9_bound),
     ]
     table = [
         {"name": name, "route": "cuda", "source": src + cu, "replaces": replaces,
@@ -875,6 +1151,14 @@ def main() -> None:
                      "bound_by_subpixel": k1s_bound[1]})
     table[7].update({"ms_subpixel": k8s_ms, "bound_ms_subpixel": k8s_bound[0],
                      "bound_by_subpixel": k8s_bound[1]})
+    # The sharded tier: K4's seeded launches on the sharded SGM and
+    # 8-direction slices and the sharded 4-path route's time; the K2 and
+    # K6 step kernels' launches on the sharded slices.
+    table[3].update({"launches_sharded": mod_counts["SGM"]["sgm_directional"],
+                     "launches_sharded_8dir": mod_counts["8-direction"]["sgm_directional"],
+                     "ms_sharded_4path": chain_ms, "ms_unsharded_4path_same_inputs": unsharded_ms})
+    table[1].update({"launches_sharded_step": sh_counts["classic"]["fill_web_holes_step"]})
+    table[5].update({"launches_sharded_step": mod_counts["SGM"]["fill_invalid_step"]})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,11 @@ reference CLI (src/stereo.c:335-392).
 
 ``--tier`` picks the device: ``cuda`` (the default) runs the pipelines on
 the GPU through the port's CUDA kernels, ``cpu`` runs their plain torch
-versions.  ``cuda`` on a host without a GPU is an error, never a
-fallback.  Both pipelines: classic (both boundary modes, both edge
+versions, ``sharded`` runs the sharded tier over every visible GPU (rows
+split over as many shards as the image height and halo reach allow, the
+JAX CLI's choice; one row shard on a one-GPU host).  ``cuda`` and
+``sharded`` on a host without a GPU are an error, never a fallback.
+Both pipelines: classic (both boundary modes, both edge
 rules, ``--collect``, ``--save-artifacts``, ``--resume``) and modern
 (box or SGM, ``--scales 1|2``, census or SAD, 4 or 8 paths, median,
 uniqueness, both fills).  ``--resume`` with ``--collect`` is refused: a
@@ -53,9 +56,10 @@ def _parse(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("lines", nargs="?", type=int, default=None)
     p.add_argument("--mode", choices=["wrap", "ghost"], default="wrap")
     p.add_argument(
-        "--tier", choices=["cuda", "cpu"], default="cuda",
+        "--tier", choices=["cuda", "cpu", "sharded"], default="cuda",
         help="cuda = the GPU with the CUDA kernels; cpu = their plain "
-        "torch versions on the CPU",
+        "torch versions on the CPU; sharded = the sharded tier over every "
+        "visible GPU",
     )
     p.add_argument(
         "--pipeline",
@@ -131,6 +135,40 @@ def _build_params(args: argparse.Namespace) -> StereoParams:
     if args.shifts is not None:
         kw["num_shifts"] = args.shifts
     return StereoParams(**kw)
+
+
+def sharded_devices():
+    """The devices ``--tier sharded`` shards over: every visible CUDA
+    device.  Raises ``RuntimeError`` without a GPU (no fallback)."""
+    import torch
+
+    from stereomatching_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _row_mesh(devices, h: int, reach: int):
+    """A (1, rows) mesh over the first ``rows`` devices: as many row
+    shards as divide the height into shards of at least ``reach`` rows."""
+    from stereomatching_tpu_torch.parallel import make_mesh
+
+    rows = len(devices)
+    while rows > 1 and (h % rows != 0 or h // rows < reach):
+        rows -= 1
+    return make_mesh(data=1, rows=rows, devices=devices[:rows])
+
+
+def _run_sharded(left, right, params: StereoParams, devices):
+    import torch
+
+    from stereomatching_tpu_torch.interop import artifacts_to_numpy
+    from stereomatching_tpu_torch.parallel import build_sharded_pipeline
+
+    mesh = _row_mesh(devices, left.shape[0], max(params.half, 1))
+    lt, rt = (torch.from_numpy(x)[None] for x in (left, right))
+    out = artifacts_to_numpy(build_sharded_pipeline(params, mesh)(lt, rt))
+    return {k: v[0] for k, v in out.items()}
 
 
 def _run_classic(left, right, params: StereoParams, collect: bool, device):
@@ -209,11 +247,12 @@ def _dump(arts: Dict[str, np.ndarray], outdir: str) -> None:
         )
 
 
-def _run_modern(args, img1, img2, device) -> Dict[str, np.ndarray]:
+def _run_modern(args, img1, img2, device, devices=None) -> Dict[str, np.ndarray]:
     import torch
 
     from stereomatching_tpu_torch.interop import artifacts_to_numpy
     from stereomatching_tpu_torch.models.modern import build_modern_pipeline
+    from stereomatching_tpu_torch.parallel import build_sharded_modern_pipeline
 
     kw = {"scales": args.scales, "cost": args.cost,
           "aggregation": args.aggregation, "median_filter": args.median,
@@ -223,7 +262,14 @@ def _run_modern(args, img1, img2, device) -> Dict[str, np.ndarray]:
         kw["num_disparities"] = args.shifts
     if args.square_width is not None:
         kw["window"] = args.square_width
-    fn = build_modern_pipeline(ModernParams(**kw))
+    params = ModernParams(**kw)
+    if devices is not None:
+        reach = params.window // 2 + (params.census_window // 2 if params.cost == "census" else 0)
+        mesh = _row_mesh(devices, img1.shape[0], max(reach, 1))
+        lt, rt = (torch.from_numpy(x.astype(np.int32))[None] for x in (img1, img2))
+        out = artifacts_to_numpy(build_sharded_modern_pipeline(params, mesh)(lt, rt))
+        return {k: v[0] for k, v in out.items()}
+    fn = build_modern_pipeline(params)
     lt, rt = (torch.from_numpy(x.astype(np.int32)).to(device) for x in (img1, img2))
     return artifacts_to_numpy(fn(lt, rt))
 
@@ -270,6 +316,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             file=sys.stderr,
         )
         return 1
+    if args.tier == "sharded" and args.collect:
+        print(
+            "error: --collect is not available on --tier sharded (the sharded "
+            "tier has no per-shift planes to dump)",
+            file=sys.stderr,
+        )
+        return 1
     if args.resume and args.collect:
         print(
             "error: --collect cannot be combined with --resume (a resumed "
@@ -277,10 +330,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             file=sys.stderr,
         )
         return 1
+    devices = None
     try:
         from stereomatching_tpu_torch.utils.device import resolve_device
 
-        device = resolve_device(args.tier)
+        if args.tier == "sharded":
+            devices = sharded_devices()
+            device = devices[0]
+        else:
+            device = resolve_device(args.tier)
     except RuntimeError as e:
         print(f"error: --tier {args.tier}: {e}", file=sys.stderr)
         return 1
@@ -295,7 +353,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return 1
         t1 = time.monotonic()
         try:
-            out = _run_modern(args, img1, img2, device)
+            out = _run_modern(args, img1, img2, device, devices)
         except (ValueError, RuntimeError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
@@ -321,6 +379,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     try:
         if args.resume:
             arts = _run_resume(args.resume, params, device)
+        elif devices is not None:
+            arts = _run_sharded(left, right, params, devices)
         else:
             arts = _run_classic(left, right, params, args.collect, device)
             if args.save_artifacts:

@@ -23,6 +23,16 @@
 // order-independent, so the result is deterministic.  For times <= 1 the
 // input is copied and reduced.
 //
+// The sharded tier (stereomatching_tpu/parallel/pipeline.py:204-259) runs
+// one step per halo exchange: fill_web_holes_step is diffuse_step on a
+// block whose 1-row (and, 2-D, 1-column) halo was exchanged, writing only
+// the interior.  With a row stride of the block's width, the flat p +- 1
+// and p +- stride of an interior cell are its four neighbours as the
+// reference reads them: on a rows-only block, (y, 0)'s p - 1 is
+// (y - 1, W - 1), inside the block; on a 2-D block the halo columns
+// arrive row-shifted at the global x edge (the flat wrap), so they are
+// exactly the cells the flat index reads.
+//
 // The TPU kernel fuses all steps in one VMEM tile with a `steps`-row halo.
 // A full-width 1024-column tile with a 31-row halo does not fit in 227 KB
 // of shared memory (2 buffers x 62 rows x 4 KB is ~500 KB), so fusing the
@@ -36,23 +46,45 @@ namespace {
 
 constexpr int NT = 256;
 
+// One cell's step: X[t] of an image whose rows are `stride` apart, the
+// cell at p, in[k] whether neighbour k (p + 1, p + stride, p - 1,
+// p - stride) is read (one that is not adds 0), *prev its X[t-1].
+__device__ __forceinline__ int diffuse_cell(const int* __restrict__ cur, int p,
+                                            int stride, const bool in[4],
+                                            const int* prev) {
+  if (cur[p] != 0) return *prev;
+  const int sum = (in[0] ? cur[p + 1] : 0) + (in[1] ? cur[p + stride] : 0) +
+                  (in[2] ? cur[p - 1] : 0) + (in[3] ? cur[p - stride] : 0);
+  return sum >> 2;  // arithmetic shift: floor division by 4
+}
+
 __global__ void __launch_bounds__(NT)
 diffuse_step(const int* __restrict__ prev, const int* __restrict__ cur,
              int* __restrict__ next, long long total, int hw, int w) {
   for (long long i = blockIdx.x * (long long)NT + threadIdx.x; i < total;
        i += (long long)gridDim.x * NT) {
-    int p = (int)(i % hw);
-    const int* img = cur + (i - p);
-    int c = cur[i];
-    int v;
-    if (c == 0) {
-      int sum = (p + 1 < hw ? img[p + 1] : 0) + (p + w < hw ? img[p + w] : 0) +
-                (p >= 1 ? img[p - 1] : 0) + (p >= w ? img[p - w] : 0);
-      v = sum >> 2;  // arithmetic shift: floor division by 4
-    } else {
-      v = prev[i];
-    }
-    next[i] = v;
+    const int p = (int)(i % hw);
+    // Flat neighbours of the cell's own image.
+    const bool in[4] = {p + 1 < hw, p + w < hw, p >= 1, p >= w};
+    next[i] = diffuse_cell(cur + (i - p), p, w, in, prev + i);
+  }
+}
+
+// One step on halo blocks: cur_ext [B, hs + 2, we] (interior columns
+// x_off .. x_off + ws - 1), prev and next [B, hs, ws].  Every flat
+// neighbour of an interior cell lies inside its block.
+__global__ void __launch_bounds__(NT)
+diffuse_step_block(const int* __restrict__ prev, const int* __restrict__ cur_ext,
+                   int* __restrict__ next, long long total, int hs, int ws,
+                   int we, int x_off) {
+  for (long long i = blockIdx.x * (long long)NT + threadIdx.x; i < total;
+       i += (long long)gridDim.x * NT) {
+    const int x = (int)(i % ws);
+    const long long r = i / ws;  // image * hs + y
+    const int y = (int)(r % hs);
+    const bool in[4] = {true, true, true, true};
+    next[i] = diffuse_cell(cur_ext + (r / hs) * (long long)(hs + 2) * we,
+                           (y + 1) * we + x + x_off, we, in, prev + i);
   }
 }
 
@@ -140,6 +172,21 @@ int fill_web_holes_range(const void* web, void* out, void* scratch0,
   }
   dim3 rgrid(blocks_for(hw, 64), B);
   image_range<<<rgrid, NT, 0, st>>>((const int*)out, hw, (int*)mn, (int*)mx);
+  return (int)cudaGetLastError();
+}
+
+// One Jacobi step of the sharded tier.  prev: int32 [B, hs, ws];
+// cur_ext: int32 [B, hs + 2, we] with the interior at columns x_off ..
+// x_off + ws - 1 (we = ws, x_off = 0 on a rows-only block; we = ws + 2,
+// x_off = 1 on a 2-D one); next: int32 [B, hs, ws].  Returns
+// cudaGetLastError().
+int fill_web_holes_step(const void* prev, const void* cur_ext, void* next,
+                        int B, int hs, int ws, int we, int x_off, void* stream) {
+  if (B < 1 || hs < 1 || ws < 1 || we < ws + 2 * x_off)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)B * hs * ws;
+  diffuse_step_block<<<blocks_for(total, 132 * 16), NT, 0, (cudaStream_t)stream>>>(
+      (const int*)prev, (const int*)cur_ext, (int*)next, total, hs, ws, we, x_off);
   return (int)cudaGetLastError();
 }
 

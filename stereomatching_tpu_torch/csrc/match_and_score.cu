@@ -1,5 +1,6 @@
 // K8: per-shift match + square box score + last-wins argmax (+ the optional
-// parabola sub-pixel plane) from two given edge maps, for sm_90a.
+// parabola sub-pixel plane) from two given edge maps, for sm_90a; and K9,
+// the same on row shards whose halo rows were already exchanged.
 //
 // Replaces the Pallas kernel stereomatching_tpu/ops/fused.py
 // match_and_score_pallas (bodies _kernel, _invoke_kernel, _match_loop,
@@ -25,6 +26,24 @@
 // a sliding row sum over 4 pixels per thread, (best, winner) and the
 // sub-pixel carries in registers.  The column sums take their own shared
 // memory here (no k tiles to reuse).
+//
+// K9 (match_and_score_prehalo) replaces the Pallas entry
+// stereomatching_tpu/ops/fused.py:757 match_and_score_pallas_prehalo, the
+// per-shard kernel of the sharded classic tier (stereomatching_tpu/
+// parallel/pipeline.py:152-165).  Its inputs are halo blocks: the left
+// edge map [B, hs + 2*halo, W] and the right one [B, hs + 2*halo, WR]
+// (WR >= W + D: the right map's x extension), their `halo` >= half rows
+// on each side exchanged from the neighbouring shards.  Only the staging
+// differs from K8's: rows are the block's own (no y wrap, no y fill; a
+// tile row past the block is never read by a kept output); columns wrap
+// modulo W for both maps in wrap mode (the JAX entry ignores the right
+// map's extension there, fused.py:810-816), else a left column outside
+// [0, W) is the sentinel and a right one outside [0, WR) is 0
+// (fused.py:817-824).  In ghost mode a left cell outside the GLOBAL image
+// is the sentinel too: each image carries its block's global first row
+// and column (row0, col0), and the global H and W are given, so the mask
+// is staged here rather than written into the map by the caller (K8's
+// staging maps every non-zero value to an edge).
 
 #include "match_loop.cuh"
 
@@ -51,6 +70,62 @@ __device__ void stage_edges(uint8_t* e, int ew, int rows,
     }
     e[i] = v;
   }
+}
+
+// K9's staging of one halo block `m` ([rows_in, mw]) as the uint8 tile e
+// (rows x ew): cell (r, c) is block row y0 - half + r + halo and column
+// x0 - half + c.  `outside` where a column leaves [0, mw) (not wrapping),
+// and with `mask`, where the cell leaves the global image.
+__device__ void stage_block(uint8_t* e, int ew, int rows, const int* __restrict__ m,
+                            int rows_in, int mw, int W, int y0, int x0, int half,
+                            int halo, bool wrap, bool mask, int row0, int Hg,
+                            int col0, int Wg, uint8_t outside) {
+  for (int i = threadIdx.x; i < rows * ew; i += NT) {
+    int r = i / ew, c = i - r * ew;
+    int by = y0 - half + r + halo, bx = x0 - half + c;
+    uint8_t v = 0;  // rows past the block only reach dropped outputs
+    if (by < rows_in) {
+      if (wrap) {
+        v = (uint8_t)(m[(size_t)by * mw + wrap_index(bx, W)] != 0);
+      } else if (bx < 0 || bx >= mw) {
+        v = outside;
+      } else {
+        v = (uint8_t)(m[(size_t)by * mw + bx] != 0);
+      }
+      if (mask) {
+        int gy = row0 + by, gx = col0 + bx;
+        if (gy < 0 || gy >= Hg || gx < 0 || gx >= Wg) v = LEFT_SENTINEL;
+      }
+    }
+    e[i] = v;
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+match_and_score_prehalo_kernel(const int* __restrict__ l_blk,
+                               const int* __restrict__ r_blk,
+                               int* __restrict__ best_out,
+                               int* __restrict__ winner_out, int rows_in,
+                               int W, int WR, int halo, int half, int num_shifts,
+                               int wrap, int ghost, const int* __restrict__ row0,
+                               int Hg, const int* __restrict__ col0, int Wg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const EdgeTiles t = edge_tiles(half, num_shifts);
+  const int hs = rows_in - 2 * halo;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int b = blockIdx.z;
+
+  int* colsum = reinterpret_cast<int*>(smem);
+  uint8_t* e_l = smem + t.cs_bytes;
+  uint8_t* e_r = e_l + t.rows * t.ew_l;
+  stage_block(e_l, t.ew_l, t.rows, l_blk + (size_t)b * rows_in * W, rows_in, W,
+              W, y0, x0, half, halo, wrap != 0, ghost != 0, row0[b], Hg,
+              col0[b], Wg, LEFT_SENTINEL);
+  stage_block(e_r, t.ew_r, t.rows, r_blk + (size_t)b * rows_in * WR, rows_in,
+              WR, W, y0, x0, half, halo, wrap != 0, false, 0, 0, 0, 0, 0);
+  __syncthreads();
+  shift_loop<false>(e_l, e_r, colsum, t, num_shifts, hs, W, y0, x0,
+                    (size_t)b * hs * W, best_out, winner_out, nullptr);
 }
 
 template <bool SUBPIXEL>
@@ -110,6 +185,35 @@ int match_and_score(const void* edges_l, const void* edges_r, void* best,
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       (const int*)edges_l, (const int*)edges_r, (int*)best, (int*)winner,
       (float*)subpixel, H, W, half, num_shifts, ghost);
+  return (int)cudaGetLastError();
+}
+
+// K9.  l_blk: int32 [B, hs + 2*halo, W], r_blk: int32 [B, hs + 2*halo,
+// WR] halo blocks (non-zero = edge), contiguous, on the device; halo >=
+// half.  wrap: columns modulo W; else ghost-style columns.  ghost: mask
+// left cells outside the global H x W image, block row 0 / column 0 of
+// image b being global row row0[b] / column col0[b] (int32 [B] on the
+// device).  Outputs: int32 [B, hs, W] best and winner.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+int match_and_score_prehalo(const void* l_blk, const void* r_blk, void* best,
+                            void* winner, int B, int rows_in, int W, int WR,
+                            int halo, int half, int num_shifts, int wrap,
+                            int ghost, const void* row0, int Hg,
+                            const void* col0, int Wg, void* stream) {
+  int smem = match_and_score_smem_bytes(half, num_shifts);
+  const int hs = rows_in - 2 * halo;
+  if (B < 1 || hs < 1 || W < 1 || num_shifts < 1 || half < 0 || halo < half ||
+      WR < W)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      match_and_score_prehalo_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + TW - 1) / TW, (hs + TH - 1) / TH, B);
+  match_and_score_prehalo_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const int*)l_blk, (const int*)r_blk, (int*)best, (int*)winner, rows_in,
+      W, WR, halo, half, num_shifts, wrap, ghost, (const int*)row0, Hg,
+      (const int*)col0, Wg);
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,9 @@ JAX package saves and loads) and port tensors, keeping dtypes (int32
 planes, int32 scalars or [B]), so a ``web-1`` checkpoint written by
 either package resumes in the other's ``classic_finish``.
 
+``mesh_shape_from_jax`` reads a JAX mesh's (data, rows[, cols]) sizes, so
+that a test builds the same shard layout in both packages.
+
 Nothing of the JAX package is imported here.
 """
 
@@ -33,6 +36,16 @@ def params_from_jax(p) -> Union[StereoParams, ModernParams]:
     if cls is None or not hasattr(p, "to_json"):
         raise TypeError(f"not a StereoParams or ModernParams: {type(p).__name__}")
     return cls.from_json(p.to_json())
+
+
+def mesh_shape_from_jax(mesh) -> tuple:
+    """A JAX ``Mesh`` over the (data, rows[, cols]) axes -> its sizes,
+    (data, rows) or (data, rows, cols): the arguments of the port's
+    ``parallel.make_mesh`` for the same layout."""
+    names = tuple(getattr(mesh, "axis_names", ()))
+    if names not in (("data", "rows"), ("data", "rows", "cols")):
+        raise TypeError(f"not a (data, rows[, cols]) mesh: axes {names}")
+    return tuple(int(mesh.shape[n]) for n in names)
 
 
 def artifacts_from_numpy(

@@ -6,13 +6,18 @@
   kernel, brightness in (``match_score_edges_pallas``);
 * ``match_and_score`` (K8, ``csrc/match_and_score.cu``): the same match,
   score and argmax from two given edge maps, the route of the
-  ``"reference"`` edge rule (``match_and_score_pallas``).
+  ``"reference"`` edge rule (``match_and_score_pallas``);
+* ``match_and_score_prehalo`` (K9, a second entry of
+  ``csrc/match_and_score.cu``): K8 on row shards whose y halo rows were
+  already exchanged, the sharded classic tier's per-shard kernel
+  (``match_and_score_pallas_prehalo``).
 
 Both take ``subpixel=True`` for the parabola-refined float32 plane of
 ``ops.argmax.match_and_score_subpixel``.  Each runs its CUDA kernel on
 CUDA tensors and its plain torch version on CPU tensors
 (``match_score_edges_reference``; ``ops.argmax.match_and_score`` and
-``match_and_score_subpixel`` for K8).  A failed build or launch raises;
+``match_and_score_subpixel`` for K8; ``match_and_score_prehalo_reference``
+for K9).  A failed build or launch raises;
 nothing falls back.  ``<wrapper>.launches`` counts kernel launches.
 """
 
@@ -26,6 +31,7 @@ import torch
 
 from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
 from stereomatching_tpu_torch.ops import argmax
+from stereomatching_tpu_torch.ops.aggregate import box_sum_padded
 from stereomatching_tpu_torch.ops.edges import find_edges
 
 MAX_SMEM_BYTES = 232448  # the sm_90 per-block opt-in limit
@@ -36,6 +42,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "match_score_edges": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
     "match_and_score": [_P] * 5 + [_I] * 6 + [_P],
+    "match_and_score_prehalo": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _I, _P],
 }
 
 
@@ -62,8 +69,10 @@ def _lib(name: str = "match_score_edges") -> ctypes.CDLL:
     from stereomatching_tpu_torch.utils.build import load
 
     lib = load(name)
-    getattr(lib, name).argtypes = _SIGNATURES[name]
-    getattr(lib, name).restype = ctypes.c_int
+    entries = [name] + (["match_and_score_prehalo"] if name == "match_and_score" else [])
+    for entry in entries:
+        getattr(lib, entry).argtypes = _SIGNATURES[entry]
+        getattr(lib, entry).restype = ctypes.c_int
     smem = getattr(lib, f"{name}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_int
@@ -175,3 +184,123 @@ def match_and_score(
 
 
 match_and_score.launches = 0
+
+
+def _prehalo_rows(x: torch.Tensor, halo: int, half: int) -> torch.Tensor:
+    """A halo block's rows trimmed to ``half`` halo rows per side."""
+    return x[:, halo - half: x.shape[1] - (halo - half)]
+
+
+def match_and_score_prehalo_reference(
+    l_blk: torch.Tensor, r_blk: torch.Tensor, params: StereoParams, halo: int,
+    row0: torch.Tensor, h_global: int, col0: torch.Tensor | None = None,
+    w_global: int | None = None, pre_extended: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch: the XLA scan branch of the JAX sharded tier's shard
+    body (``stereomatching_tpu/parallel/pipeline.py:166-196``) on the
+    same halo blocks as ``match_and_score_prehalo`` -> (best, winner),
+    int32 [B, hs, W].  The ghost-mode validity mask comes from ``row0``
+    / ``col0`` (each image's global row / column of block row / column
+    0); the box sums pad x by wrapping (wrap mode) or with zeros."""
+    half, d = params.half, params.num_shifts
+    _check_prehalo(l_blk, r_blk, params, halo, pre_extended)
+    b, rows_in, w = l_blk.shape
+    hs = rows_in - 2 * halo
+    l_ext, r_ext = (_prehalo_rows(x, halo, half).ne(0).to(torch.int32)
+                    for x in (l_blk, r_blk))
+    wrap = params.mode == BoundaryMode.WRAP and not pre_extended
+    valid = None
+    if params.mode == BoundaryMode.GHOST:
+        dev = l_blk.device
+        gy = row0.to(dev)[:, None] + (halo - half) + torch.arange(hs + 2 * half, device=dev)
+        c0 = torch.zeros_like(row0) if col0 is None else col0
+        gx = c0.to(dev)[:, None] + torch.arange(w, device=dev)
+        wg = w if w_global is None else w_global
+        valid = (((gy >= 0) & (gy < h_global))[:, :, None]
+                 & ((gx >= 0) & (gx < wg))[:, None, :]).to(torch.int32)
+    xs = torch.arange(w, device=l_blk.device)
+    best = torch.zeros((b, hs, w), dtype=torch.int32, device=l_blk.device)
+    winner = torch.zeros_like(best)
+    for i in range(d):
+        r_i = r_ext[..., (xs + i) % w] if wrap else r_ext[..., i:i + w]
+        match_ext = (l_ext == r_i).to(torch.int32)
+        if valid is not None:
+            match_ext = match_ext * valid
+        padded = (match_ext[..., (torch.arange(-half, w + half, device=xs.device) % w)]
+                  if wrap else torch.nn.functional.pad(match_ext, (half, half)))
+        sums = box_sum_padded(padded, half)
+        score = torch.where(match_ext[:, half:half + hs] == 1, sums, 0)
+        winner = torch.where(score >= best, i + 1, winner)
+        best = torch.maximum(best, score)
+    return best, winner
+
+
+def _check_prehalo(l_blk, r_blk, params: StereoParams, halo: int, pre_extended: bool):
+    if halo < params.half:
+        raise ValueError(f"halo {halo} < square_width//2 {params.half}")
+    if l_blk.ndim != 3 or r_blk.ndim != 3 or l_blk.shape[:2] != r_blk.shape[:2]:
+        raise ValueError(f"need halo blocks [B, hs + 2*halo, W] and [B, hs + 2*halo, WR], "
+                         f"got {tuple(l_blk.shape)} and {tuple(r_blk.shape)}")
+    if l_blk.shape[1] - 2 * halo < 1:
+        raise ValueError(f"halo block of {l_blk.shape[1]} rows has no interior at halo {halo}")
+    wrap = params.mode == BoundaryMode.WRAP and not pre_extended
+    if not wrap and r_blk.shape[2] < l_blk.shape[2] + params.num_shifts:
+        raise ValueError(f"right block width {r_blk.shape[2]} < W + num_shifts "
+                         f"{l_blk.shape[2] + params.num_shifts}")
+
+
+def match_and_score_prehalo(
+    l_blk: torch.Tensor, r_blk: torch.Tensor, params: StereoParams, halo: int,
+    row0: torch.Tensor, h_global: int, col0: torch.Tensor | None = None,
+    w_global: int | None = None, pre_extended: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8 on row-shard halo blocks (the sharded classic tier):
+    ``l_blk`` [B, hs + 2*halo, W] and ``r_blk`` [B, hs + 2*halo, WR]
+    int32 edge maps (non-zero = edge) whose ``halo`` >= square_width//2
+    rows per side came from the neighbouring shards, ``r_blk`` extended
+    in x past W by at least num_shifts columns (wrap mode reads its first
+    W columns modulo W) -> (best, winner) int32 [B, hs, W].  In ghost
+    mode left cells outside the global ``h_global`` x ``w_global`` image
+    never match: image b's block row 0 is global row ``row0[b]`` (and its
+    column 0 global column ``col0[b]``; default 0 and W).  With
+    ``pre_extended`` (the 2-D tier) the x halos are part of the blocks:
+    no x wrap, the columns past the blocks pad as in ghost mode.  CPU
+    tensors run the plain version, CUDA tensors K9."""
+    if _on_cpu(l_blk, r_blk):
+        return match_and_score_prehalo_reference(
+            l_blk, r_blk, params, halo, row0, h_global, col0, w_global, pre_extended)
+    _check_prehalo(l_blk, r_blk, params, halo, pre_extended)
+    for t in (l_blk, r_blk):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"match_and_score_prehalo takes contiguous int32 blocks, got {t.dtype}")
+    if params.square_width > MAX_SQUARE_WIDTH:
+        raise ValueError(f"match_and_score_prehalo takes square_width <= {MAX_SQUARE_WIDTH}")
+    b, rows_in, w = l_blk.shape
+    if b > 65535:
+        raise ValueError(f"match_and_score_prehalo takes at most 65535 images, got {b}")
+    lib = _lib("match_and_score")
+    smem = lib.match_and_score_smem_bytes(params.half, params.num_shifts)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"square_width {params.square_width} with {params.num_shifts} shifts needs "
+            f"{smem} B of shared memory per block (limit {MAX_SMEM_BYTES})")
+    dev = l_blk.device
+    row0 = row0.to(dev, torch.int32).contiguous()
+    col0 = (torch.zeros_like(row0) if col0 is None else col0.to(dev, torch.int32).contiguous())
+    hs = rows_in - 2 * halo
+    best, winner = (torch.empty((b, hs, w), dtype=torch.int32, device=dev) for _ in range(2))
+    wrap = params.mode == BoundaryMode.WRAP and not pre_extended
+    with torch.cuda.device(dev):
+        err = lib.match_and_score_prehalo(
+            l_blk.data_ptr(), r_blk.data_ptr(), best.data_ptr(), winner.data_ptr(),
+            b, rows_in, w, r_blk.shape[2], halo, params.half, params.num_shifts,
+            int(wrap), int(params.mode == BoundaryMode.GHOST), row0.data_ptr(), h_global,
+            col0.data_ptr(), w if w_global is None else w_global,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"match_and_score_prehalo kernel launch failed: CUDA error {err}")
+    match_and_score_prehalo.launches += 1
+    return best, winner
+
+
+match_and_score_prehalo.launches = 0

@@ -5,14 +5,18 @@
   web diffusion with each image's min/max (``fill_web_holes_pallas``
   with ``with_range=True``);
 * ``fill_invalid`` (K6, ``csrc/fill_invalid.cu``): the modern
-  pipeline's validity-aware fill (``fill_invalid_pallas``).
+  pipeline's validity-aware fill (``fill_invalid_pallas``);
+* ``fill_web_holes_step`` / ``fill_invalid_step``: one step (sweep) of
+  the same kernels on a halo block, the sharded tier's form, which
+  exchanges a 1-row (and 1-column) halo before each step.
 
 Each runs its CUDA kernel on CUDA tensors and its plain torch version
 (``*_reference``) on CPU tensors.  A failed build or launch raises;
 nothing falls back.  ``<wrapper>.launches`` counts the CUDA kernel
 launches the C entry issues: for K2 one ``diffuse_step`` per Jacobi step
 and one ``image_range``, ``max(times - 1, 0) + 1`` per call; for K6 one
-``fill_step`` per sweep, ``iterations`` per call.
+``fill_step`` per sweep, ``iterations`` per call; one per call for the
+two step wrappers.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from stereomatching_tpu_torch.ops import costvolume
 from stereomatching_tpu_torch.ops.diffusion import fill_web_holes
@@ -44,6 +49,13 @@ _ENTRIES = {
     "fill_invalid": ("fill_invalid",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
+# The one-step entries of the same sources.
+_STEP_ENTRIES = {
+    "fill_web_holes": ("fill_web_holes_step",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "fill_invalid": ("fill_invalid_step",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+}
 
 
 @functools.cache
@@ -51,10 +63,10 @@ def _lib(name: str) -> ctypes.CDLL:
     from stereomatching_tpu_torch.utils.build import load
 
     lib = load(name)
-    fn_name, argtypes = _ENTRIES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in (_ENTRIES[name], _STEP_ENTRIES[name]):
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -161,3 +173,117 @@ def fill_invalid(
 
 
 fill_invalid.launches = 0
+
+
+def _block_shape(ext: torch.Tensor, x_off: int):
+    """A halo block [B, hs + 2, we] -> (B, hs, ws, we)."""
+    if ext.ndim != 3 or x_off not in (0, 1) or ext.shape[1] < 3 or ext.shape[2] <= 2 * x_off:
+        raise ValueError(f"need a halo block [B, hs + 2, ws + 2 * x_off], got "
+                         f"{tuple(ext.shape)} with x_off {x_off}")
+    b, rows, we = ext.shape
+    return b, rows - 2, we - 2 * x_off, we
+
+
+def fill_web_holes_step_reference(
+    prev: torch.Tensor, cur_ext: torch.Tensor, x_off: int
+) -> torch.Tensor:
+    """Plain torch: one step of ``ops.diffusion.fill_web_holes`` on a
+    halo block, the JAX sharded tier's scan body
+    (``parallel/pipeline.py:208-219``, ``:232-257``): the flat p +- 1,
+    p +- we neighbours of each interior cell of ``cur_ext`` [B, hs + 2,
+    we] (interior columns ``x_off`` .. ``x_off + ws - 1``) -> the next
+    web [B, hs, ws]."""
+    b, hs, ws, we = _block_shape(cur_ext, x_off)
+    f = cur_ext.reshape(b, -1)
+    nb = (F.pad(f[:, 1:], (0, 1)) + F.pad(f[:, we:], (0, we))
+          + F.pad(f[:, :-1], (1, 0)) + F.pad(f[:, :-we], (we, 0)))
+    avg = (nb // 4).reshape(b, hs + 2, we)[:, 1:-1, x_off:x_off + ws]
+    cur = cur_ext[:, 1:-1, x_off:x_off + ws]
+    return torch.where(cur == 0, avg, prev)
+
+
+def fill_web_holes_step(prev: torch.Tensor, cur_ext: torch.Tensor, x_off: int) -> torch.Tensor:
+    """One Jacobi step of the web diffusion on a halo block: ``prev``
+    [B, hs, ws] (the step before), ``cur_ext`` [B, hs + 2, we] (the
+    current web with its exchanged 1-row halo; ``x_off`` 1 and we = ws +
+    2 with a 1-column halo too), int32 -> the next web [B, hs, ws].  CPU
+    tensors run the plain version, CUDA tensors K2's step kernel."""
+    b, hs, ws, we = _block_shape(cur_ext, x_off)
+    if tuple(prev.shape) != (b, hs, ws):
+        raise ValueError(f"prev {tuple(prev.shape)} does not fit the block {tuple(cur_ext.shape)}")
+    if prev.device.type == "cpu" and cur_ext.device.type == "cpu":
+        return fill_web_holes_step_reference(prev, cur_ext, x_off)
+    for t in (prev, cur_ext):
+        if t.device.type != "cuda" or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("fill_web_holes_step takes contiguous int32 CUDA tensors")
+    out = torch.empty_like(prev)
+    with torch.cuda.device(prev.device):
+        err = _lib("fill_web_holes").fill_web_holes_step(
+            prev.data_ptr(), cur_ext.data_ptr(), out.data_ptr(), b, hs, ws, we, x_off,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fill_web_holes_step kernel launch failed: CUDA error {err}")
+    fill_web_holes_step.launches += 1
+    return out
+
+
+fill_web_holes_step.launches = 0
+
+
+def fill_invalid_step_reference(
+    d_ext: torch.Tensor, v_ext: torch.Tensor, x_off: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch: one sweep of ``ops.costvolume.fill_invalid`` on halo
+    blocks, the JAX sharded tier's scan body (``parallel/modern.py:
+    355-392``): float32 d and uint8 validity [B, hs + 2, we] -> (d, v)
+    [B, hs, ws].  The neighbour sum is right + left + down + up; a
+    rows-only block's x neighbours stop at its columns (zero), a 2-D
+    block's come from its halo columns."""
+    b, hs, ws, we = _block_shape(d_ext, x_off)
+    v = v_ext.to(torch.float32)
+    dv = d_ext * v
+
+    def neigh(x):
+        mid = x[:, 1:-1]
+        if x_off:
+            right, left = mid[:, :, 2:], mid[:, :, :-2]
+        else:
+            right, left = F.pad(mid[:, :, 1:], (0, 1)), F.pad(mid[:, :, :-1], (1, 0))
+        return ((right + left) + x[:, 2:, x_off:x_off + ws]) + x[:, :-2, x_off:x_off + ws]
+
+    num, den = neigh(dv), neigh(v)
+    avg = num / torch.clamp(den, min=1.0)
+    d, vc = (t[:, 1:-1, x_off:x_off + ws] for t in (d_ext, v))
+    newly = (vc == 0) & (den > 0)
+    return torch.where(newly, avg, d), torch.where(newly, 1.0, vc).to(torch.uint8)
+
+
+def fill_invalid_step(
+    d_ext: torch.Tensor, v_ext: torch.Tensor, x_off: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sweep of the validity-aware fill on a halo block: float32
+    disparity and uint8 validity [B, hs + 2, we] with their exchanged
+    1-row halo (``x_off`` 1 and we = ws + 2 with a 1-column halo too)
+    -> (d, v) [B, hs, ws].  CPU tensors run the plain version, CUDA
+    tensors K6's sweep kernel."""
+    b, hs, ws, we = _block_shape(d_ext, x_off)
+    if v_ext.shape != d_ext.shape:
+        raise ValueError(f"validity {tuple(v_ext.shape)} != disparity {tuple(d_ext.shape)}")
+    if d_ext.device.type == "cpu" and v_ext.device.type == "cpu":
+        return fill_invalid_step_reference(d_ext, v_ext, x_off)
+    if (d_ext.device.type != "cuda" or d_ext.dtype != torch.float32 or v_ext.dtype != torch.uint8
+            or not (d_ext.is_contiguous() and v_ext.is_contiguous())):
+        raise ValueError("fill_invalid_step takes contiguous float32 / uint8 CUDA blocks")
+    d_out = torch.empty((b, hs, ws), dtype=torch.float32, device=d_ext.device)
+    v_out = torch.empty((b, hs, ws), dtype=torch.uint8, device=d_ext.device)
+    with torch.cuda.device(d_ext.device):
+        err = _lib("fill_invalid").fill_invalid_step(
+            d_ext.data_ptr(), v_ext.data_ptr(), d_out.data_ptr(), v_out.data_ptr(),
+            b, hs, ws, we, x_off, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fill_invalid_step kernel launch failed: CUDA error {err}")
+    fill_invalid_step.launches += 1
+    return d_out, v_out
+
+
+fill_invalid_step.launches = 0

@@ -4,7 +4,9 @@
 * ``sgm_volume`` (K3, ``csrc/sgm_volume.cu``): the per-pixel census or
   SAD cost volume [B, H, W, D];
 * ``sgm_directional`` (K4, ``csrc/sgm_directional.cu``): one SGM path
-  (a row, column or diagonal walk), written or added into the aggregate;
+  (a row, column or diagonal walk), written or added into the aggregate,
+  a column or diagonal walk optionally seeded by the previous row shard's
+  carry and handing its own on (the sharded tier's phased chain);
   ``sgm_aggregate_paths`` runs the four paths of the 4-direction sum or
   the eight of the 8-direction sum;
 * ``sgm_tail`` (K5, ``csrc/sgm_tail.cu``): argmin, sub-pixel, winner
@@ -36,7 +38,7 @@ MAX_DISPARITIES = 256  # K4 keeps at most 8 disparities per lane
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sgm_volume": [_P, _P, _P] + [_I] * 6 + [_P],
-    "sgm_directional": [_P, _I, _P] + [_I] * 10 + [_P],
+    "sgm_directional": [_P, _I, _P] + [_I] * 10 + [_P, _P, _P],
     "sgm_tail": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P],
 }
 
@@ -149,16 +151,19 @@ sgm_volume.launches = 0
 
 
 def sgm_directional_reference(
-    vol: torch.Tensor, p1: int, p2: int, direction: int, reverse: bool
-) -> torch.Tensor:
-    """Plain torch: one SGM path over vol [..., H, W, D] -> int32 L."""
-    return sgm.path(vol, p1, p2, direction, reverse)
+    vol: torch.Tensor, p1: int, p2: int, direction: int, reverse: bool,
+    seed: torch.Tensor | None = None, with_carry: bool = False,
+):
+    """Plain torch: one SGM path over vol [..., H, W, D] -> int32 L
+    (``sgm.path``; with ``with_carry``, (L, carry))."""
+    return sgm.path(vol, p1, p2, direction, reverse, seed, with_carry)
 
 
 def sgm_directional(
     vol: torch.Tensor, agg: torch.Tensor, p1: int, p2: int,
     direction: int, reverse: bool, accumulate: bool,
-) -> torch.Tensor:
+    seed: torch.Tensor | None = None, with_carry: bool = False,
+):
     """One SGM path over vol [..., H, W, D] (int8/int16/int32), written
     into ``agg`` (same shape, int16/int32) or, with ``accumulate``, added
     to it.  ``direction`` is ``sgm.X`` (or False: along rows), ``sgm.Y``
@@ -167,6 +172,12 @@ def sgm_directional(
     each line from its last cell.  Updates ``agg`` in place (the
     aggregate is the largest buffer of the route, so the paths share it)
     and returns it.  The caller keeps every value inside agg's dtype.
+
+    ``seed`` (int32 [..., W, D]) and ``with_carry`` take ``sgm.Y`` and
+    the diagonals: the walk continues from the previous row shard's last
+    scanned row, and with ``with_carry`` -> (agg, carry), the carry
+    int32 [..., W, D] being this launch's last scanned row (unshifted),
+    the next shard's seed (``sgm.path``).
     CPU tensors run the plain version, CUDA tensors K4."""
     if vol.shape != agg.shape or vol.ndim not in (3, 4):
         raise ValueError(
@@ -176,24 +187,39 @@ def sgm_directional(
         raise ValueError(f"unsupported dtypes {vol.dtype} / {agg.dtype}")
     if direction not in (sgm.X, sgm.Y, sgm.DIAG_PLUS, sgm.DIAG_MINUS):
         raise ValueError(f"unknown direction {direction!r}")
-    if _device_route(vol, agg):
-        path = sgm_directional_reference(vol, p1, p2, direction, reverse)
+    edge = (*vol.shape[:-3], vol.shape[-2], vol.shape[-1])
+    if (seed is not None or with_carry) and direction == sgm.X:
+        raise ValueError("seed / with_carry take the column or diagonal paths")
+    if seed is not None and (tuple(seed.shape) != edge or seed.dtype != torch.int32):
+        raise ValueError(f"seed must be int32 {edge}, got {seed.dtype} {tuple(seed.shape)}")
+    tensors = (vol, agg) if seed is None else (vol, agg, seed)
+    if _device_route(*tensors):
+        path = sgm_directional_reference(vol, p1, p2, direction, reverse, seed, with_carry)
+        carry = None
+        if with_carry:
+            path, carry = path
         if accumulate:
             agg += path.to(agg.dtype)
         else:
             agg.copy_(path)
-        return agg
+        return (agg, carry) if with_carry else agg
     if not (vol.is_contiguous() and agg.is_contiguous()):
         raise ValueError("vol and agg must be contiguous")
+    if seed is not None and not seed.is_contiguous():
+        raise ValueError("seed must be contiguous")
+    carry = (torch.empty(edge, dtype=torch.int32, device=vol.device)
+             if with_carry else None)
     d = vol.shape[-1]
     if d > MAX_DISPARITIES:
         raise ValueError(f"sgm_directional takes D <= {MAX_DISPARITIES}, got {d}")
     b, h, w = (vol.shape[:-1] if vol.ndim == 4 else (1, *vol.shape[:-1]))
     _launch("sgm_directional", vol.device, vol.data_ptr(), vol.element_size(),
             agg.data_ptr(), agg.element_size(), b, h, w, d, p1, p2,
-            int(direction), int(reverse), int(accumulate))
+            int(direction), int(reverse), int(accumulate),
+            None if seed is None else seed.data_ptr(),
+            None if carry is None else carry.data_ptr())
     sgm_directional.launches += 1
-    return agg
+    return (agg, carry) if with_carry else agg
 
 
 sgm_directional.launches = 0

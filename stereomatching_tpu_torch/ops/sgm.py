@@ -10,7 +10,10 @@ with L = C at the path's first pixel and d±1 outside [0, D) padded with
 ``_BIG``.  A path runs along x (rows), along y (columns) or along one of
 the two diagonal families, stepping (y+1, x+1) or (y+1, x-1); each is
 walked forward or in reverse.  A diagonal cell whose predecessor lies
-outside the image starts its path (L = C).  Volumes are [..., H, W, D]
+outside the image starts its path (L = C).  A column or diagonal path
+can also continue from the previous row shard's last row (``seed``) and
+hand its own last row on (``with_carry``): the sharded tier's phased
+chain.  Volumes are [..., H, W, D]
 (d innermost, the JAX package's ``hwd`` layout); all arithmetic is exact
 int32.  Plain torch: on the port's main route the paths and the tail run
 as the kernels of ``ops/fused_sgm.py``, and these functions are their
@@ -60,31 +63,63 @@ def _directional(vol: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
     return out
 
 
-def _directional_diag(vol: torch.Tensor, p1: int, p2: int, dx: int) -> torch.Tensor:
-    """One diagonal top-to-bottom pass with predecessor (y-1, x-dx):
-    vol [..., H, W, D] -> int32 L of the same shape.  The carry (the
-    previous row's L) shifts by ``dx`` columns per row; a column whose
-    predecessor is outside the image gets an all-``_BIG`` carry, which
-    collapses the step to L = C."""
+def _shift_x(carry: torch.Tensor, dx: int) -> torch.Tensor:
+    """A row's L [..., W, D] seen from the next row of a path with
+    predecessor (y-1, x-dx): shifted ``dx`` columns, an all-``_BIG``
+    plane where the predecessor is outside the image."""
+    if dx == 1:
+        return F.pad(carry[..., :-1, :], (0, 0, 1, 0), value=_BIG)
+    if dx == -1:
+        return F.pad(carry[..., 1:, :], (0, 0, 0, 1), value=_BIG)
+    return carry
+
+
+def _directional_diag(vol: torch.Tensor, p1: int, p2: int, dx: int,
+                      seed: torch.Tensor | None = None) -> torch.Tensor:
+    """One top-to-bottom pass with predecessor (y-1, x-dx): vol
+    [..., H, W, D] -> int32 L of the same shape.  The carry (the
+    previous row's L) shifts by ``dx`` columns per row (0: a column
+    path); a column whose predecessor is outside the image gets an
+    all-``_BIG`` carry, which collapses the step to L = C.  ``seed``
+    [..., W, D], the L of the row above the volume, is row 0's carry
+    (else row 0 starts every path)."""
     vol = vol.to(torch.int32)
     out = torch.empty_like(vol)
     carry = vol[..., 0, :, :]
+    if seed is not None:
+        carry = _step(_shift_x(seed.to(torch.int32), dx), carry, p1, p2)
     out[..., 0, :, :] = carry
     for y in range(1, vol.shape[-3]):
-        if dx == 1:
-            shifted = F.pad(carry[..., :-1, :], (0, 0, 1, 0), value=_BIG)
-        else:
-            shifted = F.pad(carry[..., 1:, :], (0, 0, 0, 1), value=_BIG)
-        carry = _step(shifted, vol[..., y, :, :], p1, p2)
+        carry = _step(_shift_x(carry, dx), vol[..., y, :, :], p1, p2)
         out[..., y, :, :] = carry
     return out
 
 
-def path(vol: torch.Tensor, p1: int, p2: int, direction: int, reverse: bool) -> torch.Tensor:
+def path(vol: torch.Tensor, p1: int, p2: int, direction: int, reverse: bool,
+         seed: torch.Tensor | None = None, with_carry: bool = False):
     """One SGM path over [..., H, W, D] -> int32 L: along W (``X``), H
     (``Y``) or a diagonal (``DIAG_PLUS`` steps (y+1, x+1), ``DIAG_MINUS``
     (y+1, x-1)), from the first cell of each line (``reverse`` False) or
-    the last."""
+    the last.
+
+    For ``Y`` and the diagonals, ``seed`` [..., W, D] continues the walk
+    from the row before the first scanned one (the previous row shard's
+    last scanned row, unshifted: cell x of the first scanned row takes
+    seed[x - sx] as its predecessor, sx the walk's x step), and
+    ``with_carry`` also returns the last scanned row's L [..., W, D]
+    (unshifted) -> (L, carry): a seeded pass continuing a carrying one
+    equals one pass over both, sliced at the boundary."""
+    if seed is not None or with_carry:
+        if direction not in (Y, DIAG_PLUS, DIAG_MINUS):
+            raise ValueError("seed / with_carry take the column or diagonal paths")
+        dx = {Y: 0, DIAG_PLUS: 1, DIAG_MINUS: -1}[direction]
+        if not reverse:
+            out = _directional_diag(vol, p1, p2, dx, seed)
+        else:
+            out = _directional_diag(vol.flip(-3), p1, p2, -dx, seed).flip(-3)
+        if not with_carry:
+            return out
+        return out, out[..., 0 if reverse else -1, :, :].clone()
     if direction in (DIAG_PLUS, DIAG_MINUS):
         dx = 1 if direction == DIAG_PLUS else -1
         if not reverse:

@@ -1,4 +1,4 @@
-"""Serving API on one device (counterpart of
+"""Serving API on one device or a mesh of shards (counterpart of
 ``stereomatching_tpu/serving.py``):
 
     matcher = Matcher(StereoParams(num_shifts=64, edge_rule="exact"), device="cuda")
@@ -15,6 +15,14 @@
 ``Matcher`` accepts uint8 pixel arrays (brightness = pixel / 256,
 float32) or brightness floats; ``ModernMatcher`` takes 0..255 integer
 pixels.  Both take single pairs [H, W] or batches [B, H, W].
+
+With ``mesh=`` (``parallel.make_mesh``) either runs the sharded tier
+instead: the batch is split over the mesh's data axis (padded up to a
+multiple of it by repeating the last pair, the padding sliced away) and
+each image's rows (and columns) over its spatial axes:
+
+    mesh = make_mesh(data=2, rows=4, devices=["cuda:0"] * 8)
+    arts = Matcher(params, mesh=mesh)(left_u8, right_u8)
 """
 
 from __future__ import annotations
@@ -34,8 +42,8 @@ from stereomatching_tpu_torch.utils.device import resolve_device
 def _warmup(pipeline, device: torch.device, dtype: torch.dtype,
             hw: Tuple[int, int], batch: Optional[int]) -> None:
     """Run one zero batch [batch, H, W] (or one [H, W] pair) through
-    ``pipeline`` on ``device`` and wait for it: on a CUDA device this
-    builds and loads every kernel of the route."""
+    ``pipeline`` (a matcher's tensor route) on ``device`` and wait for
+    it: on a CUDA device this builds and loads every kernel of the route."""
     shape = (batch, *hw) if batch else tuple(hw)
     zeros = torch.zeros(shape, dtype=dtype, device=device)
     pipeline(zeros, zeros)
@@ -43,18 +51,52 @@ def _warmup(pipeline, device: torch.device, dtype: torch.dtype,
         torch.cuda.synchronize(device)
 
 
+def _run_sharded(fn, mesh, lt: torch.Tensor, rt: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The sharded tier on a pair or batch: a pair becomes a batch of
+    one, the batch is padded up to a multiple of the data axis by
+    repeating its last pair, and the padding is sliced away again; a
+    height that does not divide by the rows axis is refused."""
+    from stereomatching_tpu_torch.parallel.mesh import DATA_AXIS, ROWS_AXIS
+
+    squeeze = lt.ndim == 2
+    if squeeze:
+        lt, rt = lt[None], rt[None]
+    n_real = lt.shape[0]
+    n_data, n_rows = mesh.shape[DATA_AXIS], mesh.shape[ROWS_AXIS]
+    if lt.shape[1] % n_rows:
+        raise ValueError(
+            f"height {lt.shape[1]} must divide by the mesh rows axis ({n_rows})")
+    if n_real % n_data:
+        pad = n_data - n_real % n_data
+        lt = torch.cat([lt, lt[-1:].expand(pad, *lt.shape[1:])])
+        rt = torch.cat([rt, rt[-1:].expand(pad, *rt.shape[1:])])
+    out = fn(lt, rt)
+    if squeeze:
+        return {k: v[0] for k, v in out.items()}
+    return {k: v[:n_real] for k, v in out.items()}
+
+
 class Matcher:
     """Classic-pipeline runner on ``device`` ("cuda" runs the kernels,
-    "cpu" their plain versions; a missing GPU raises)."""
+    "cpu" their plain versions; a missing GPU raises), or with ``mesh``
+    the sharded tier over the mesh's devices."""
 
     def __init__(
         self,
         params: Optional[StereoParams] = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.params = params or StereoParams(edge_rule="exact")
-        self.device = resolve_device(device)
-        self.pipeline = ClassicPipeline(self.params).eval()
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.pipeline = ClassicPipeline(self.params).eval()
+        else:
+            from stereomatching_tpu_torch.parallel import build_sharded_pipeline
+
+            self.device = mesh.blocks[2][0][0]
+            self.pipeline = build_sharded_pipeline(self.params, mesh)
 
     @staticmethod
     def _to_brightness(img: np.ndarray) -> np.ndarray:
@@ -65,8 +107,9 @@ class Matcher:
 
     def warmup(self, hw: Tuple[int, int], batch: Optional[int] = None) -> None:
         """Build and load the route's kernels ahead of serving by running
-        one zero batch of (H, W) pairs (or one pair) on the device."""
-        _warmup(self.pipeline, self.device, torch.float32, hw, batch)
+        one zero batch of (H, W) pairs (or one pair) on the device (with
+        a mesh, through the sharded tier)."""
+        _warmup(self._run, self.device, torch.float32, hw, batch)
 
     def __call__(self, left: np.ndarray, right: np.ndarray) -> Dict[str, np.ndarray]:
         lb = self._to_brightness(left)
@@ -77,22 +120,36 @@ class Matcher:
             raise ValueError(f"need [H, W] or [B, H, W], got {lb.shape}")
         lt = torch.from_numpy(lb).to(self.device)
         rt = torch.from_numpy(rb).to(self.device)
-        return artifacts_to_numpy(self.pipeline(lt, rt))
+        return artifacts_to_numpy(self._run(lt, rt))
+
+    def _run(self, lt: torch.Tensor, rt: torch.Tensor):
+        if self.mesh is not None:
+            return _run_sharded(self.pipeline, self.mesh, lt, rt)
+        return self.pipeline(lt, rt)
 
 
 class ModernMatcher:
     """Modern-pipeline runner (box or SGM route; ``ModernParams()``, the
     box route, when ``params`` is None) on ``device`` ("cuda" runs the
-    kernels, "cpu" their plain versions; a missing GPU raises)."""
+    kernels, "cpu" their plain versions; a missing GPU raises), or with
+    ``mesh`` the sharded tier over the mesh's devices."""
 
     def __init__(
         self,
         params: Optional[ModernParams] = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.params = params or ModernParams()
-        self.device = resolve_device(device)
-        self.pipeline = ModernPipeline(self.params).eval()
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.pipeline = ModernPipeline(self.params).eval()
+        else:
+            from stereomatching_tpu_torch.parallel import build_sharded_modern_pipeline
+
+            self.device = mesh.blocks[2][0][0]
+            self.pipeline = build_sharded_modern_pipeline(self.params, mesh)
 
     @staticmethod
     def _to_pixels(img: np.ndarray) -> np.ndarray:
@@ -114,8 +171,9 @@ class ModernMatcher:
 
     def warmup(self, hw: Tuple[int, int], batch: Optional[int] = None) -> None:
         """Build and load the route's kernels ahead of serving by running
-        one zero batch of (H, W) pairs (or one pair) on the device."""
-        _warmup(self.pipeline, self.device, torch.int32, hw, batch)
+        one zero batch of (H, W) pairs (or one pair) on the device (with
+        a mesh, through the sharded tier)."""
+        _warmup(self._run, self.device, torch.int32, hw, batch)
 
     def __call__(self, left: np.ndarray, right: np.ndarray) -> Dict[str, np.ndarray]:
         lp = self._to_pixels(left)
@@ -126,4 +184,9 @@ class ModernMatcher:
             raise ValueError(f"need [H, W] or [B, H, W], got {lp.shape}")
         lt = torch.from_numpy(np.ascontiguousarray(lp)).to(self.device).to(torch.int32)
         rt = torch.from_numpy(np.ascontiguousarray(rp)).to(self.device).to(torch.int32)
-        return artifacts_to_numpy(self.pipeline(lt, rt))
+        return artifacts_to_numpy(self._run(lt, rt))
+
+    def _run(self, lt: torch.Tensor, rt: torch.Tensor):
+        if self.mesh is not None:
+            return _run_sharded(self.pipeline, self.mesh, lt, rt)
+        return self.pipeline(lt, rt)

@@ -6,6 +6,11 @@ loads.  The library goes to ``build/stereomatching_tpu_torch/`` at the
 root of the checkout (listed in ``.gitignore``), named by a hash of its
 source and flags: an edited source is rebuilt, an unchanged one is
 reused.  Nothing falls back: without ``nvcc`` the build raises.
+
+Threads of one process (one per device of a sharded mesh) may ask for a
+library at once: ``load`` builds and loads each library once under a
+lock, and every ``nvcc`` writes a temporary file of its own process and
+thread, renamed into place when it is complete.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -63,7 +69,7 @@ def build_all(names) -> list[Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, out in todo:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -85,7 +91,16 @@ def build(name: str) -> Path:
     return build_all([name])[0]
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
+    """Build (if needed) and load ``csrc/<name>.cu`` once per process;
+    threads that ask at the same time wait for that one build."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.cache
+def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))

@@ -491,3 +491,184 @@ def test_matcher_warmup_launches_the_route(cuda_device):
     Matcher(StereoParams(num_shifts=8, square_width=5), device=cuda_device).warmup(
         (40, 56), batch=2)
     assert fused.match_and_score.launches == before + 1
+
+
+# ------------------------------------------------------- the sharded tier
+
+
+def _halo_blocks(rng, b, hs, w, halo, wr, density=0.3):
+    """Random 0/1 edge blocks [b, hs + 2*halo, w] and [.., wr] (int32)."""
+    rows = hs + 2 * halo
+    l_blk = (rng.random((b, rows, w)) < density).astype(np.int32)
+    r_blk = (rng.random((b, rows, wr)) < density).astype(np.int32)
+    return torch.from_numpy(l_blk), torch.from_numpy(r_blk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (mode, pre_extended, b, hs, w, D, sw, halo)
+    (BoundaryMode.WRAP, False, 4, 24, 70, 16, 9, 4),
+    (BoundaryMode.WRAP, False, 2, 33, 45, 80, 5, 3),
+    (BoundaryMode.GHOST, False, 4, 24, 70, 16, 9, 4),
+    (BoundaryMode.GHOST, False, 3, 40, 64, 12, 21, 12),
+    (BoundaryMode.GHOST, True, 4, 24, 36, 12, 9, 4),
+    (BoundaryMode.WRAP, True, 4, 24, 36, 12, 9, 4),
+])
+def test_match_and_score_prehalo_kernel_matches_plain(cuda_device, case):
+    mode, pre, b, hs, w, d, sw, halo = case
+    params = StereoParams(num_shifts=d, square_width=sw, mode=mode)
+    rng = np.random.default_rng(31)
+    l_blk, r_blk = _halo_blocks(rng, b, hs, w, halo, w + d)
+    h_global = 2 * hs
+    # Shards at the top, the bottom and the middle of a taller image.
+    row0 = torch.tensor([(i % 3 - 1) * hs - halo for i in range(b)], dtype=torch.int32)
+    col0 = torch.tensor([(i % 2) * 20 - params.half for i in range(b)], dtype=torch.int32)
+    extra = dict(col0=col0, w_global=w + 10) if pre else {}
+    before = fused.match_and_score_prehalo.launches
+    got = fused.match_and_score_prehalo(l_blk.to(cuda_device), r_blk.to(cuda_device), params,
+                                        halo, row0.to(cuda_device), h_global,
+                                        pre_extended=pre, **extra)
+    torch.cuda.synchronize()
+    assert fused.match_and_score_prehalo.launches == before + 1
+    ref = fused.match_and_score_prehalo_reference(l_blk, r_blk, params, halo, row0, h_global,
+                                                  pre_extended=pre, **extra)
+    for a, b_ in zip(got, ref):
+        assert torch.equal(a.cpu(), b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.int8, torch.int16), (torch.int16, torch.int16),
+                                    (torch.int32, torch.int32)])
+@pytest.mark.parametrize("direction", [sgm.Y, sgm.DIAG_PLUS, sgm.DIAG_MINUS])
+def test_sgm_directional_seeded_chain_matches_plain_and_unsharded(cuda_device, direction, dtypes):
+    vdt, adt = dtypes
+    rng = np.random.default_rng(32)
+    d = 40
+    vol = torch.from_numpy(rng.integers(0, 60, (3, 30, 37, d)).astype(np.int32)).to(vdt)
+    vol_c = vol.to(cuda_device)
+    bounds = [0, 7, 8, 19, 30]  # 4 row shards, one of a single row
+    for reverse in (False, True):
+        full = torch.zeros(vol.shape, dtype=adt, device=cuda_device)
+        fused_sgm.sgm_directional(vol_c, full, 8, 96, direction, reverse, accumulate=False)
+        agg = torch.zeros(vol.shape, dtype=adt, device=cuda_device)
+        seed = seed_ref = None
+        order = range(4) if not reverse else reversed(range(4))
+        for j in order:
+            part = slice(bounds[j], bounds[j + 1])
+            a = agg[:, part].contiguous()
+            before = fused_sgm.sgm_directional.launches
+            a, seed = fused_sgm.sgm_directional(vol_c[:, part].contiguous(), a, 8, 96, direction,
+                                                reverse, True, seed=seed, with_carry=True)
+            assert fused_sgm.sgm_directional.launches == before + 1
+            agg[:, part] = a
+            ref, seed_ref = fused_sgm.sgm_directional_reference(
+                vol[:, part].contiguous(), 8, 96, direction, reverse, seed=seed_ref,
+                with_carry=True)
+            torch.cuda.synchronize()
+            assert torch.equal(a.cpu().to(torch.int32), ref)
+            assert torch.equal(seed.cpu(), seed_ref)
+        assert torch.equal(agg, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_off", [0, 1])
+def test_diffusion_step_kernels_match_plain(cuda_device, x_off):
+    rng = np.random.default_rng(33)
+    b, hs, ws = 3, 21, 37
+    we = ws + 2 * x_off
+    web = rng.integers(1, 65, (b, hs + 2, we)).astype(np.int32)
+    web[rng.random(web.shape) < 0.4] = 0
+    prev = torch.from_numpy(rng.integers(0, 65, (b, hs, ws)).astype(np.int32))
+    web = torch.from_numpy(web)
+    before = fused_diffusion.fill_web_holes_step.launches
+    got = fused_diffusion.fill_web_holes_step(prev.to(cuda_device), web.to(cuda_device), x_off)
+    torch.cuda.synchronize()
+    assert fused_diffusion.fill_web_holes_step.launches == before + 1
+    assert torch.equal(got.cpu(), fused_diffusion.fill_web_holes_step_reference(prev, web, x_off))
+    d = torch.from_numpy(rng.random((b, hs + 2, we)).astype(np.float32) * 64)
+    v = torch.from_numpy((rng.random((b, hs + 2, we)) < 0.5).astype(np.uint8))
+    got = fused_diffusion.fill_invalid_step(d.to(cuda_device), v.to(cuda_device), x_off)
+    ref = fused_diffusion.fill_invalid_step_reference(d, v, x_off)
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, ref):
+        assert a.dtype == b_.dtype and torch.equal(a.cpu(), b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mesh_shape", [(2, 4, None), (1, 2, 2)])
+def test_sharded_classic_on_one_card_matches_single_device(cuda_device, mode, mesh_shape):
+    from stereomatching_tpu_torch.models.classic import classic_forward_batched
+    from stereomatching_tpu_torch.parallel import build_sharded_pipeline, make_mesh
+
+    data, rows, cols = mesh_shape
+    params = StereoParams(num_shifts=12, square_width=9, times=6, lines=4, mode=mode,
+                          edge_rule="exact")
+    mesh = make_mesh(data=data, rows=rows, cols=cols,
+                     devices=[cuda_device] * (data * rows * (cols or 1)))
+    rng = np.random.default_rng(34)
+    shape = (data, 48, 40 * (cols or 1))
+    left, right = (torch.from_numpy(rng.integers(0, 256, shape).astype(np.float32) / 256.0)
+                   .to(cuda_device) for _ in range(2))
+    before = fused.match_and_score_prehalo.launches
+    got = build_sharded_pipeline(params, mesh)(left, right)
+    assert fused.match_and_score_prehalo.launches == before + 1
+    want = classic_forward_batched(left, right, params)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,mesh_shape", [
+    (dict(aggregation="sgm", cost="census", sgm_directions=8, median_filter=True,
+          uniqueness=True), (1, 4, None)),
+    (dict(aggregation="sgm", cost="sad"), (2, 2, None)),
+    (dict(cost="census", window=5, median_filter=True), (2, 4, None)),
+    (dict(cost="sad", window=5, median_filter=True), (1, 2, 2)),
+])
+def test_sharded_modern_on_one_card_matches_single_device(cuda_device, kw, mesh_shape):
+    from stereomatching_tpu_torch.parallel import build_sharded_modern_pipeline, make_mesh
+
+    data, rows, cols = mesh_shape
+    params = ModernParams(num_disparities=16, **kw)
+    mesh = make_mesh(data=data, rows=rows, cols=cols,
+                     devices=[cuda_device] * (data * rows * (cols or 1)))
+    rng = np.random.default_rng(35)
+    shape = (data, 48, 40 * (cols or 1))
+    left, right = (torch.from_numpy(rng.integers(0, 256, shape).astype(np.int32)).to(cuda_device)
+                   for _ in range(2))
+    got = build_sharded_modern_pipeline(params, mesh)(left, right)
+    want = modern.modern_forward(left, right, params)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+def test_sharded_over_every_visible_gpu_in_one_process(cuda_device):
+    """One process, one block of shards per GPU (``make_mesh``'s default
+    devices, as the CLI's ``--tier sharded`` uses them): the blocks run
+    in threads and their halos and SGM carries cross devices."""
+    from stereomatching_tpu_torch.models.classic import classic_forward_batched
+    from stereomatching_tpu_torch.parallel import (
+        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more GPUs")
+    mesh = make_mesh(data=1, rows=n)
+    assert len(mesh.blocks[2]) == n
+    rng = np.random.default_rng(36)
+    shape = (2, 12 * n, 48)
+    left, right = (rng.integers(0, 256, shape) for _ in range(2))
+    cparams = StereoParams(num_shifts=12, square_width=9, times=6, lines=4,
+                           mode=BoundaryMode.GHOST, edge_rule="exact")
+    lf, rf = (torch.from_numpy(x.astype(np.float32) / 256.0).to(cuda_device) for x in (left, right))
+    got = build_sharded_pipeline(cparams, mesh)(lf, rf)
+    for k, v in classic_forward_batched(lf, rf, cparams).items():
+        assert torch.equal(got[k].to(cuda_device), v), k
+    mparams = ModernParams(num_disparities=16, aggregation="sgm", cost="census", sgm_directions=8)
+    lp, rp = (torch.from_numpy(x.astype(np.int32)).to(cuda_device) for x in (left, right))
+    got = build_sharded_modern_pipeline(mparams, mesh)(lp, rp)
+    for k, v in modern.modern_forward(lp, rp, mparams).items():
+        assert torch.equal(got[k].to(cuda_device), v), k

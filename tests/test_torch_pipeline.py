@@ -234,3 +234,43 @@ def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build(name)
     assert not (tmp_path / "build").exists() or not os.listdir(tmp_path / "build")
+
+
+
+def test_load_builds_once_across_threads(tmp_path, monkeypatch):
+    """Two threads (two devices of a sharded mesh) asking for one library
+    at once against an empty build dir run one nvcc and load one complete
+    file.  The stub nvcc writes its output in two parts with a pause
+    between, so a second build into the same temporary file, or a load of
+    a half-written one, shows."""
+    import threading
+
+    nvcc, runs = tmp_path / "nvcc", tmp_path / "runs"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {runs}\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'printf part > "$2"; sleep 0.5; printf done >> "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: Path(path).read_text())
+    start = threading.Barrier(2)
+    got = []
+
+    def one():
+        start.wait()
+        got.append(build.load("fill_invalid"))
+
+    build._load.cache_clear()
+    try:
+        threads = [threading.Thread(target=one) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        build._load.cache_clear()
+    assert got == ["partdone", "partdone"]
+    assert runs.read_text().split() == ["run"]
+    assert [f.suffix for f in (tmp_path / "build").iterdir()] == [".so"]

@@ -12,6 +12,7 @@ uniqueness).
     python3 tools/profile_torch_pipeline.py --pipeline sgm    # SGM route
     python3 tools/profile_torch_pipeline.py --pipeline box    # box route
     python3 tools/profile_torch_pipeline.py --pipeline sgm8   # 8-direction stack
+    python3 tools/profile_torch_pipeline.py --pipeline sgm --mesh 1x4   # sharded tier
 
 Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
@@ -40,6 +41,12 @@ where the params ask for them, the torch LR check, K6 fill; box: K7 for
 each reference view, the torch LR check, K6 fill), and ``ModernMatcher``
 at batch 8 split into host pixel checks, host-to-device copy (uint8),
 pipeline (with the widening to int32) and device-to-host copy + numpy.
+
+With ``--mesh DATAxROWS`` (any route) the sharded tier instead, its
+shards all on ``cuda:0``: device-resident ms/pair of the sharded pipeline
+beside the single-device one at batch 8 (5 repeats each), and the
+profiler over 3 sharded batches of 8 (device time per kernel name, busy
+share).
 
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
@@ -363,17 +370,67 @@ def main_classic(rule: str) -> None:
               for k, v in parts.items()), flush=True)
 
 
+def main_sharded(route: str, data: int, rows: int) -> None:
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import BoundaryMode, ModernParams, StereoParams
+    from stereomatching_tpu_torch.models.classic import ClassicPipeline
+    from stereomatching_tpu_torch.models.modern import ModernPipeline
+    from stereomatching_tpu_torch.parallel import (
+        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+
+    smi = card()
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(data=data, rows=rows, devices=[dev] * (data * rows))
+    rng = np.random.default_rng(SEED)
+    u8 = [rng.integers(0, 256, (8, SIZE, SIZE), dtype=np.uint8) for _ in range(2)]
+    if route in ("classic", "reference"):
+        rule = "exact" if route == "classic" else "reference"
+        mode = BoundaryMode.GHOST if rule == "exact" else BoundaryMode.WRAP
+        params = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule=rule)
+        sharded, single = build_sharded_pipeline(params, mesh), ClassicPipeline(params)
+        lt, rt = (torch.from_numpy(x.astype(np.float32) / np.float32(256.0)).to(dev) for x in u8)
+        label = f"{mode.value}, {rule}"
+    else:
+        fields, label = MODERN[route]
+        params = ModernParams(num_disparities=SHIFTS, **fields)
+        sharded, single = build_sharded_modern_pipeline(params, mesh), ModernPipeline(params)
+        lt, rt = (torch.from_numpy(x).to(dev).to(torch.int32) for x in u8)
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; sharded "
+          f"{label}, mesh data {data} x rows {rows} on cuda:0, {SIZE}x{SIZE}, D={SHIFTS}, "
+          f"random u8 pairs, batch 8", flush=True)
+    for name, fn in (("sharded", sharded), ("single device", single)):
+        fn(lt, rt)
+        torch.cuda.synchronize()
+        reps = [event_ms(lambda: fn(lt, rt), 3) / 8 for _ in range(5)]
+        print(f"[{name}] device-resident ms/pair, 5 repeats of 3: "
+              f"{', '.join(f'{r:.4f}' for r in reps)}", flush=True)
+
+    def three():
+        for _ in range(3):
+            sharded(lt, rt)
+        torch.cuda.synchronize()
+
+    profile_kernels(three, "sharded batch 8 x3")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pipeline", choices=("classic", "reference", *MODERN),
                         default="classic")
+    parser.add_argument("--mesh", metavar="DATAxROWS",
+                        help="profile the sharded tier on a data x rows mesh on cuda:0")
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, str(ROOT))
-    if args.pipeline in ("classic", "reference"):
+    if args.mesh:
+        data, rows = (int(x) for x in args.mesh.split("x"))
+        main_sharded(args.pipeline, data, rows)
+    elif args.pipeline in ("classic", "reference"):
         main_classic("exact" if args.pipeline == "classic" else "reference")
     else:
         main_modern(args.pipeline)
