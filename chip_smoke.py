@@ -19,7 +19,10 @@ plain, the reference-rule classic slice, the CLI (classic and modern
 tier on meshes whose shards all live on ``cuda:0``: K9 vs plain on the
 shard blocks, K4's seeded chain vs plain and vs the unsharded launch, the
 sharded classic slice (``Matcher(mesh=...)``), the sharded modern slices
-(SGM, 8 directions, box), the CLI's ``--tier sharded``, sharded times.
+(SGM, 8 directions, box), the CLI's ``--tier sharded``, sharded times;
+the routes chosen before launch for configs past a kernel's limits
+(square width 301, D 320), equal to the CPU route; K1's shared-memory
+instruction counts in SASS.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -1111,6 +1114,70 @@ def main() -> None:
           f"sharded SGM (rows 4) {ssgm_ms:.4f} ms/pair vs {sgm1_ms:.4f}; sharded 8-direction "
           f"(rows 4) {s8_ms:.4f} ms/pair vs {sgm8_1_ms:.4f} (batch {BATCH}, device-resident)",
           flush=True)
+
+    # Phase 26: the routes chosen before launch for configs past a kernel's
+    # limits (square width 301 past K1's and K8's 255; D 320 past K7's and
+    # K4's 256): the stage runs its plain version on the card, every other
+    # kernel as usual, and the planes equal the CPU route's bit for bit, on
+    # small pairs; then the box route at D 320 on a rows-2 mesh of cuda:0,
+    # equal to the single-device route.
+    from stereomatching_tpu_torch.models import classic
+
+    f5_wrappers = {"match_score_edges": fused.match_score_edges,
+                   "match_and_score": fused.match_and_score,
+                   "match_and_score_prehalo": fused.match_and_score_prehalo,
+                   "disparity": fused_modern.disparity,
+                   "sgm_directional": fused_sgm.sgm_directional}
+    f5_notes = []
+    frng = np.random.default_rng(SEED + 26)
+    fl_u8, fr_u8 = (frng.integers(0, 256, (320, 320), dtype=np.uint8) for _ in range(2))
+    for rule in ("reference", "exact"):
+        fp = StereoParams(num_shifts=8, square_width=301, edge_rule=rule, times=4)
+        gm = Matcher(fp, device="cuda")
+        check(gm.plain_stages == classic.plain_stages(fp) and len(gm.plain_stages) == 1,
+              f"sw 301 {rule}: plain_stages {gm.plain_stages}")
+        for fn in f5_wrappers.values():
+            fn.launches = 0
+        got = gm(fl_u8, fr_u8)
+        check(all(fn.launches == 0 for fn in f5_wrappers.values()),
+              f"sw 301 {rule}: a refused kernel launched")
+        want = Matcher(fp, device="cpu")(fl_u8, fr_u8)
+        for k in want:
+            check(np.array_equal(got[k], want[k]), f"sw 301 {rule}: {k} differs from the CPU route")
+        f5_notes.append(f"classic {rule} sw 301 ({list(gm.plain_stages)[0]} plain)")
+    fl_u8, fr_u8 = (frng.integers(0, 256, (2, 40, 352), dtype=np.uint8) for _ in range(2))
+    for agg in ("box", "sgm"):
+        fp = ModernParams(num_disparities=320, aggregation=agg, cost="census")
+        gm = ModernMatcher(fp, device="cuda")
+        for fn in f5_wrappers.values():
+            fn.launches = 0
+        got = gm(fl_u8, fr_u8)
+        check(all(fn.launches == 0 for fn in f5_wrappers.values()),
+              f"D 320 {agg}: a refused kernel launched")
+        want = ModernMatcher(fp, device="cpu")(fl_u8, fr_u8)
+        for k in want:
+            check(got[k].dtype == want[k].dtype
+                  and np.array_equal(got[k].view(np.uint8), want[k].view(np.uint8)),
+                  f"D 320 {agg}: {k} differs from the CPU route")
+        f5_notes.append(f"{agg} D 320 ({list(gm.plain_stages)[0]} plain)")
+    fp = ModernParams(num_disparities=320)
+    got = ModernMatcher(fp, mesh=card_mesh(1, 2))(fl_u8, fr_u8)
+    want = ModernMatcher(fp, device="cuda")(fl_u8, fr_u8)
+    for k in want:
+        check(np.array_equal(got[k].view(np.uint8), want[k].view(np.uint8)),
+              f"sharded box D 320: {k} differs from the single-device route")
+    f5_notes.append("sharded box D 320 on rows 2 == single device")
+    print(f"[26 F5 routes] {'; '.join(f5_notes)}: planes == the CPU route bitwise, no "
+          f"refused kernel launched", flush=True)
+
+    # K1's shift loop in SASS: shared-memory loads, stores and barriers in
+    # each kernel instance, in total and per loop (cuobjdump -sass).
+    from stereomatching_tpu_torch.utils.build import _target, sass_counts
+
+    k1_sass = {re.search(r"\w+_kernel(<[^>]*>)?", name).group(0): {"total": c["total"], "loops": [
+        {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
+        for name, c in sass_counts(_target("match_score_edges")).items()}
+    print(json.dumps({"k1_sass": k1_sass}), flush=True)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

@@ -15,7 +15,11 @@ the GPU through the port's CUDA kernels, ``cpu`` runs their plain torch
 versions, ``sharded`` runs the sharded tier over every visible GPU (rows
 split over as many shards as the image height and halo reach allow, the
 JAX CLI's choice; one row shard on a one-GPU host).  ``cuda`` and
-``sharded`` on a host without a GPU are an error, never a fallback.
+``sharded`` on a host without a GPU are an error, never a fallback.  A
+config a kernel does not take (a square width above 255, a tile past the
+card's shared memory, more than 256 disparities on the box or SGM route)
+runs that stage as plain torch ops on the GPU, chosen before any launch,
+and one ``note:`` line on stderr names the stage and the reason.
 Both pipelines: classic (both boundary modes, both edge
 rules, ``--collect``, ``--save-artifacts``, ``--resume``) and modern
 (box or SGM, ``--scales 1|2``, census or SAD, 4 or 8 paths, median,
@@ -263,6 +267,9 @@ def _run_modern(args, img1, img2, device, devices=None) -> Dict[str, np.ndarray]
     if args.square_width is not None:
         kw["window"] = args.square_width
     params = ModernParams(**kw)
+    from stereomatching_tpu_torch.models.modern import plain_stages
+
+    _note_plain_stages(plain_stages(params), args.tier)
     if devices is not None:
         reach = params.window // 2 + (params.census_window // 2 if params.cost == "census" else 0)
         mesh = _row_mesh(devices, img1.shape[0], max(reach, 1))
@@ -290,6 +297,15 @@ def _dump_modern(out: Dict[str, np.ndarray], outdir: str) -> None:
         np.asarray(out["valid"]).astype(np.int64) ^ 1,  # invalid -> black
         artifact_ppm_type("output-0"),
     )
+
+
+def _note_plain_stages(stages: Dict[str, str], tier: str) -> None:
+    """One ``note:`` line on stderr naming the stages that run as plain
+    torch ops on the GPU for this config, and why (nothing on the CPU
+    tier, where every stage is plain)."""
+    if stages and tier != "cpu":
+        print(f"note: plain torch on the GPU for {'; '.join(stages.values())}",
+              file=sys.stderr)
 
 
 def _timing_line(shape, t1: float, t2: float) -> None:
@@ -370,6 +386,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    if not args.resume:
+        from stereomatching_tpu_torch.models.classic import plain_stages
+
+        _note_plain_stages(plain_stages(params, sharded=devices is not None), args.tier)
     left = to_brightness(img1, np.float32)
     right = to_brightness(img2, np.float32)
 

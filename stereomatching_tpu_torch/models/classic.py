@@ -10,6 +10,14 @@ as ``fill_web_holes_range`` (K2).  Each is the CUDA kernel on CUDA
 tensors and its plain torch version on CPU tensors.  ``subpixel`` adds
 the parabola-refined float32 ``"subpixel"`` artifact on both rules.
 
+Which kernel-backed stage runs its plain version on the CUDA device is
+decided from the config alone, before any launch
+(``classic_kernels_supported``, the port's counterpart of the JAX
+package's dispatch by config): a square width above 255, or a tile that
+needs more shared memory than a block has, runs the matching stage as
+plain torch ops on the device.  The kernels themselves still refuse such
+configs; nothing catches a launch error.
+
 The collect pipeline also returns the per-shift planes the reference
 dumps in its debug builds.  No kernel produces those planes (the JAX
 package builds them on XLA only), so its scoring loop is plain torch on
@@ -28,7 +36,9 @@ from stereomatching_tpu_torch.config import StereoParams
 from stereomatching_tpu_torch.ops.argmax import match_and_score_collect
 from stereomatching_tpu_torch.ops.contour import contour_bands
 from stereomatching_tpu_torch.ops.edges import find_edges
-from stereomatching_tpu_torch.ops.fused import match_and_score, match_score_edges
+from stereomatching_tpu_torch.ops.fused import (
+    kernel_refusal, match_and_score, match_and_score_reference, match_score_edges,
+    match_score_edges_reference)
 from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range
 
 Artifacts = Dict[str, torch.Tensor]
@@ -49,6 +59,42 @@ def classic_finish(winner: torch.Tensor, params: StereoParams) -> Artifacts:
     }
 
 
+def _match_stage(params: StereoParams, sharded: bool = False) -> str:
+    """The kernel of the classic pipeline's matching stage: K9 on the
+    sharded tier, else K1 (exact rule) or K8 (reference rule)."""
+    if sharded:
+        return "match_and_score_prehalo"
+    return "match_score_edges" if params.edge_rule == "exact" else "match_and_score"
+
+
+def classic_kernels_supported(params: StereoParams, sharded: bool = False):
+    """-> (ok, why): whether the matching stage's CUDA kernel (K1 or K8,
+    with ``sharded`` K9) takes ``params``; when it does not, that stage
+    runs its plain torch version on the CUDA device and ``why`` names the
+    stage and the reason.  The diffusion (K2) takes every config.
+    Decided from the config alone, before any launch."""
+    stage = _match_stage(params, sharded)
+    why = kernel_refusal(stage, params)
+    return (True, "") if not why else (False, f"{stage}: {why}")
+
+
+def plain_stages(params: StereoParams, sharded: bool = False) -> Dict[str, str]:
+    """{stage: why} of the stages ``params``' route runs as plain torch
+    ops on the CUDA device (``classic_kernels_supported``)."""
+    ok, why = classic_kernels_supported(params, sharded)
+    return {} if ok else {_match_stage(params, sharded): why}
+
+
+def _match_fn(params: StereoParams) -> Callable:
+    """The single-device matching stage of ``params``: K1's or K8's
+    wrapper, or its plain version where the kernel does not take the
+    config."""
+    kernel, _ = classic_kernels_supported(params)
+    if params.edge_rule == "exact":
+        return match_score_edges if kernel else match_score_edges_reference
+    return match_and_score if kernel else match_and_score_reference
+
+
 def _edges(left: torch.Tensor, right: torch.Tensor, params: StereoParams):
     return tuple(find_edges(x, params.threshold, params.mode, params.edge_rule)
                  for x in (left, right))
@@ -57,12 +103,12 @@ def _edges(left: torch.Tensor, right: torch.Tensor, params: StereoParams):
 def _forward(
     left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool
 ) -> Artifacts:
+    match = _match_fn(params)
     if params.edge_rule == "exact":
-        best, winner, edges_l, edges_r, *sub = match_score_edges(
-            left, right, params, subpixel)
+        best, winner, edges_l, edges_r, *sub = match(left, right, params, subpixel)
     else:
         edges_l, edges_r = _edges(left, right, params)
-        best, winner, *sub = match_and_score(edges_l, edges_r, params, subpixel)
+        best, winner, *sub = match(edges_l, edges_r, params, subpixel)
     out = {
         "edges-1": edges_l,
         "edges-2": edges_r,

@@ -17,7 +17,10 @@ run as ``fused_modern.disparity``, ``sgm_volume`` / ``sgm_directional`` /
 (``ops/fused_diffusion.py``): the CUDA kernels on CUDA tensors, their
 plain torch versions on CPU tensors.  The census transform, the
 uniqueness ratio, the median, the LR check and the background fill are
-torch ops on every device.
+torch ops on every device.  A stage whose kernel does not take the
+config (K7 above window 255 or D 256, K4 above D 256) runs its plain
+version on the CUDA device too, chosen before any launch by
+``modern_kernels_supported``.
 
 Multi-scale fusion (``scales=2``) adds ``coarse_weight`` x a cost of
 disparity d // 2 computed on the 2x2-block-summed images, upsampled by
@@ -33,7 +36,7 @@ the outputs are the same bits whatever storage is chosen.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -71,6 +74,47 @@ _PLAIN = _Route(
     fused_sgm.sgm_tail_reference,
     fused_diffusion.fill_invalid_reference,
 )
+
+
+# The kernel-backed stages each route runs.
+_ROUTE_STAGES = {"box": ("disparity", "fill_invalid"),
+                 "sgm": ("volume", "aggregate", "tail", "fill_invalid")}
+
+
+def modern_kernels_supported(params: ModernParams) -> Dict[str, Tuple[bool, str]]:
+    """-> {stage: (ok, why)} for each kernel-backed stage of ``_Route``:
+    whether its CUDA kernel takes ``params``.  A stage that is not ok runs
+    its plain torch version on the CUDA device, and ``why`` names the
+    kernel and the reason: K7 (``disparity``) takes window <= 255 and
+    D <= 256, K4 (``aggregate``, ``sgm_directional``) D <= 256; K3, K5
+    and K6 take every config.  Decided from the config alone, before any
+    launch (the counterpart of the JAX package's
+    ``modern_pallas_supported``)."""
+    d, window = params.num_disparities, params.window
+    k7 = ""
+    if window > fused_modern.MAX_WINDOW:
+        k7 = f"disparity: window {window} > {fused_modern.MAX_WINDOW}"
+    elif d > fused_modern.MAX_DISPARITIES:
+        k7 = f"disparity: num_disparities {d} > {fused_modern.MAX_DISPARITIES}"
+    k4 = ""
+    if d > fused_sgm.MAX_DISPARITIES:
+        k4 = f"sgm_directional: num_disparities {d} > {fused_sgm.MAX_DISPARITIES}"
+    why = {"disparity": k7, "volume": "", "aggregate": k4, "tail": "", "fill_invalid": ""}
+    return {stage: (not w, w) for stage, w in why.items()}
+
+
+def plain_stages(params: ModernParams) -> Dict[str, str]:
+    """{stage: why} of the stages ``params``' route runs as plain torch
+    ops on the CUDA device (``modern_kernels_supported``)."""
+    ok = modern_kernels_supported(params)
+    return {s: ok[s][1] for s in _ROUTE_STAGES[params.aggregation] if not ok[s][0]}
+
+
+def _route(params: ModernParams) -> _Route:
+    """The route of ``params``: each stage's kernel wrapper, or its plain
+    version where the kernel does not take the config."""
+    ok = modern_kernels_supported(params)
+    return _Route(*(getattr(_KERNELS if ok[f][0] else _PLAIN, f) for f in _Route._fields))
 
 
 def _sgm_cost_bound(params: ModernParams) -> int:
@@ -247,7 +291,7 @@ def disparity_one_view(
     _check_inputs(left, right)
     if reference not in ("left", "right"):
         raise ValueError(f"reference must be 'left' or 'right', got {reference!r}")
-    return _box_views(left, right, params, _KERNELS, (reference,))[0]
+    return _box_views(left, right, params, _route(params), (reference,))[0]
 
 
 def _forward(left, right, params: ModernParams, route: _Route) -> Outputs:
@@ -271,8 +315,9 @@ def modern_forward(left: torch.Tensor, right: torch.Tensor, params: ModernParams
     subpixel (f32), disparity_right (int32), valid (bool, LR-consistent),
     filled (f32), cost (int32 at the winner), and on the SGM route
     uniqueness (f32) with ``params.uniqueness``; each [H, W] or
-    [B, H, W] on the inputs' device."""
-    return _forward(left, right, params, _KERNELS)
+    [B, H, W] on the inputs' device.  Stages whose kernel does not take
+    ``params`` run their plain version (``modern_kernels_supported``)."""
+    return _forward(left, right, params, _route(params))
 
 
 def modern_forward_reference(

@@ -46,6 +46,46 @@ _SIGNATURES = {
 }
 
 
+def match_score_edges_smem_bytes(half: int, num_shifts: int) -> int:
+    """Shared memory per block of K1: a mirror of the ``layout`` arithmetic
+    of ``csrc/match_score_edges.cu`` (its taller, 128-row tile), so that a
+    route can be chosen from the config alone.  Each of the tile's 128 +
+    2*half rows holds a left and a validity row of lst = (128 + 2*half)/32
+    + 1 words, two match-plane rows of lst word pairs, and a right row
+    (D - 1)/32 + 1 words longer than lst."""
+    rows = 128 + 2 * half
+    lst = (128 + 2 * half + 31) // 32 + 1
+    rst = lst + (num_shifts - 1) // 32 + 1
+    return 4 * rows * (6 * lst + rst)
+
+
+def match_and_score_smem_bytes(half: int, num_shifts: int) -> int:
+    """Shared memory per block of K8 and K9: a mirror of ``edge_tiles`` in
+    ``csrc/match_loop.cuh`` (a 32x32 output tile; byte edge tiles of
+    32 + 2*half rows, the right one D - 1 columns wider, and 32 rows of
+    int32 column sums with an odd stride)."""
+    ew_l = 32 + 2 * half
+    return 32 * (ew_l | 1) * 4 + (32 + 2 * half) * (2 * ew_l + num_shifts - 1)
+
+
+def kernel_refusal(kernel: str, params: StereoParams) -> str:
+    """Why the CUDA kernel ``kernel`` ("match_score_edges" (K1),
+    "match_and_score" (K8) or "match_and_score_prehalo" (K9)) does not
+    take ``params``, or "" when it does: square_width above 255, or more
+    shared memory per block than the card's 232448 bytes (which also
+    keeps K1's shift count below the 65536 its packed winner holds).
+    Pure Python: no library is loaded."""
+    sw, d = params.square_width, params.num_shifts
+    if sw > MAX_SQUARE_WIDTH:
+        return f"square_width {sw} > {MAX_SQUARE_WIDTH}"
+    smem = (match_score_edges_smem_bytes if kernel == "match_score_edges"
+            else match_and_score_smem_bytes)(params.half, d)
+    if smem > MAX_SMEM_BYTES:
+        return (f"square_width {sw} with {d} shifts needs {smem} B of shared memory "
+                f"per block (limit {MAX_SMEM_BYTES})")
+    return ""
+
+
 def match_score_edges_reference(
     left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool = False
 ) -> Tuple[torch.Tensor, ...]:
@@ -62,6 +102,16 @@ def _match_and_score_reference(edges_l, edges_r, params: StereoParams, subpixel:
     if subpixel:
         return argmax.match_and_score_subpixel(edges_l, edges_r, params)
     return argmax.match_and_score(edges_l, edges_r, params)
+
+
+def match_and_score_reference(
+    edges_l: torch.Tensor, edges_r: torch.Tensor, params: StereoParams, subpixel: bool = False
+) -> Tuple[torch.Tensor, ...]:
+    """Plain torch on any device: ``ops.argmax.match_and_score`` (or
+    ``match_and_score_subpixel``) on the edge maps read as 0/1 (non-zero
+    is an edge, as K8 stages them)."""
+    binary = [e.ne(0).to(torch.int32) for e in (edges_l, edges_r)]
+    return _match_and_score_reference(*binary, params, subpixel)
 
 
 @functools.cache
@@ -176,8 +226,7 @@ def match_and_score(
     match_and_score`` / ``match_and_score_subpixel``) on the maps as 0/1,
     CUDA tensors K8, which stages them as 0/1 bytes."""
     if _on_cpu(edges_l, edges_r):
-        binary = [e.ne(0).to(torch.int32) for e in (edges_l, edges_r)]
-        return _match_and_score_reference(*binary, params, subpixel)
+        return match_and_score_reference(edges_l, edges_r, params, subpixel)
     outs = _launch("match_and_score", edges_l, edges_r, torch.int32, params, 2, subpixel)
     match_and_score.launches += 1
     return outs

@@ -159,6 +159,25 @@ def sgm_directional_reference(
     return sgm.path(vol, p1, p2, direction, reverse, seed, with_carry)
 
 
+def sgm_directional_plain(
+    vol: torch.Tensor, agg: torch.Tensor, p1: int, p2: int,
+    direction: int, reverse: bool, accumulate: bool,
+    seed: torch.Tensor | None = None, with_carry: bool = False,
+):
+    """``sgm_directional``'s plain version on any device: the path of
+    ``sgm_directional_reference`` written into (or added to) ``agg``
+    -> agg, or (agg, carry) with ``with_carry``."""
+    path = sgm_directional_reference(vol, p1, p2, direction, reverse, seed, with_carry)
+    carry = None
+    if with_carry:
+        path, carry = path
+    if accumulate:
+        agg += path.to(agg.dtype)
+    else:
+        agg.copy_(path)
+    return (agg, carry) if with_carry else agg
+
+
 def sgm_directional(
     vol: torch.Tensor, agg: torch.Tensor, p1: int, p2: int,
     direction: int, reverse: bool, accumulate: bool,
@@ -194,15 +213,8 @@ def sgm_directional(
         raise ValueError(f"seed must be int32 {edge}, got {seed.dtype} {tuple(seed.shape)}")
     tensors = (vol, agg) if seed is None else (vol, agg, seed)
     if _device_route(*tensors):
-        path = sgm_directional_reference(vol, p1, p2, direction, reverse, seed, with_carry)
-        carry = None
-        if with_carry:
-            path, carry = path
-        if accumulate:
-            agg += path.to(agg.dtype)
-        else:
-            agg.copy_(path)
-        return (agg, carry) if with_carry else agg
+        return sgm_directional_plain(vol, agg, p1, p2, direction, reverse, accumulate,
+                                     seed, with_carry)
     if not (vol.is_contiguous() and agg.is_contiguous()):
         raise ValueError("vol and agg must be contiguous")
     if seed is not None and not seed.is_contiguous():

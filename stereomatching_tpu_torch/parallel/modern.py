@@ -27,7 +27,10 @@ per row position and walk), its tail K5; each fill sweep K6's sweep
 kernel (``fill_invalid_step``).  The CUDA kernels run on CUDA shards,
 their plain versions on CPU shards.  The 2-D (rows x cols) box route is
 torch ops (the JAX package runs it on XLA only), its fill sweeps K6's.
-Every route's output equals the single-device pipeline's, bit for bit.
+A config that K7 or K4 does not take (``models.modern.
+modern_kernels_supported``) runs that stage's plain version on the CUDA
+shards.  Every route's output equals the single-device pipeline's, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.models.modern import (
-    _sgm_out_dtype, _sgm_storage_dtype, _uniqueness_ratio)
+    _sgm_out_dtype, _sgm_storage_dtype, _uniqueness_ratio, modern_kernels_supported)
 from stereomatching_tpu_torch.ops import costvolume, fused_modern, fused_sgm, sgm
 from stereomatching_tpu_torch.ops.costvolume import (
     DisparityResult, _aggregate, argmin_subpixel_scan, census_transform, pixel_cost)
@@ -246,9 +249,12 @@ def _box_shard_forward(sh: Shards, left, right, params: ModernParams) -> Outputs
     lx, rx = _prepare_cost_blocks(sh, left.to(torch.int32), right.to(torch.int32), params)
     lx, rx = sh.flat(lx).contiguous(), sh.flat(rx).contiguous()
 
+    kernel, _ = modern_kernels_supported(params)["disparity"]
+    disparity = fused_modern.disparity if kernel else fused_modern.disparity_reference
+
     def one_view(reference):
         ref, oth = (lx, rx) if reference == "left" else (rx, lx)
-        res = fused_modern.disparity(ref, oth, params, reference)
+        res = disparity(ref, oth, params, reference)
         return DisparityResult(*(sh.unflat(x[:, half:half + hs].contiguous()) for x in res))
 
     dl, dr = one_view("left"), one_view("right")
@@ -284,7 +290,8 @@ def _census_blocks_sgm(sh: Shards, left, right, params: ModernParams):
     return prep(left), prep(right)
 
 
-def _sgm_chain(sh: Shards, vol, agg, direction: int, p1: int, p2: int) -> None:
+def _sgm_chain(sh: Shards, vol, agg, direction: int, p1: int, p2: int,
+               directional: Callable = fused_sgm.sgm_directional) -> None:
     """Both walks of a column or diagonal path over row shards, added into
     ``agg``: in global phase j the shard on row j walks top-down and the
     shard on row n - 1 - j bottom-up, each one K4 launch over the block's
@@ -293,7 +300,8 @@ def _sgm_chain(sh: Shards, vol, agg, direction: int, p1: int, p2: int) -> None:
     to its row neighbour (the JAX tier's ppermute): the same exchanges in
     the same order on every block, so point-to-point sends cannot
     deadlock.  Equal to one pass over the unsharded columns.
-    vol / agg: [lr * n, hs, W, D] (cols = 1)."""
+    vol / agg: [lr * n, hs, W, D] (cols = 1); ``directional`` is K4's
+    wrapper or its plain version (``fused_sgm.sgm_directional_plain``)."""
     n, lr, r0, nr = sh.n, sh.lr, sh.r0, sh.n_rows
     zero = torch.zeros((n, vol.shape[-2], vol.shape[-1]), dtype=torch.int32, device=vol.device)
     seeds = {False: None, True: None}
@@ -302,7 +310,7 @@ def _sgm_chain(sh: Shards, vol, agg, direction: int, p1: int, p2: int) -> None:
             local = pos - r0
             if 0 <= local < lr:
                 rows = slice(local * n, (local + 1) * n)
-                _, seeds[reverse] = fused_sgm.sgm_directional(
+                _, seeds[reverse] = directional(
                     vol[rows], agg[rows], p1, p2, direction, reverse, accumulate=True,
                     seed=seeds[reverse], with_carry=True)
         if j == nr - 1:
@@ -326,11 +334,13 @@ def _sgm_shard_forward(sh: Shards, left, right, params: ModernParams) -> Outputs
                                d_count, params.cost, _sgm_storage_dtype(params))
     del ref, other
     agg = torch.empty(vol.shape, dtype=_sgm_out_dtype(params), device=vol.device)
-    fused_sgm.sgm_directional(vol, agg, p1, p2, sgm.X, False, accumulate=False)
-    fused_sgm.sgm_directional(vol, agg, p1, p2, sgm.X, True, accumulate=True)
+    kernel, _ = modern_kernels_supported(params)["aggregate"]
+    directional = fused_sgm.sgm_directional if kernel else fused_sgm.sgm_directional_plain
+    directional(vol, agg, p1, p2, sgm.X, False, accumulate=False)
+    directional(vol, agg, p1, p2, sgm.X, True, accumulate=True)
     directions = [sgm.Y] + ([sgm.DIAG_PLUS, sgm.DIAG_MINUS] if params.sgm_directions == 8 else [])
     for direction in directions:
-        _sgm_chain(sh, vol, agg, direction, p1, p2)
+        _sgm_chain(sh, vol, agg, direction, p1, p2, directional)
     del vol
     outs = [sh.unflat(x) for x in fused_sgm.sgm_tail(agg, params.uniqueness)]
     del agg

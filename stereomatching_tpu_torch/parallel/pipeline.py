@@ -17,7 +17,9 @@ Per block of shards (``mesh.Shards``) each stage is one launch over all
 the block's shards: the edges are torch ops on the halo blocks, the match
 / box / argmax is ``match_and_score_prehalo`` (K9) and each diffusion step
 ``fill_web_holes_step`` (K2's step kernel), the CUDA kernels on CUDA
-shards and their plain versions on CPU shards.  Both boundary modes are
+shards and their plain versions on CPU shards; a config K9 does not take
+(``models.classic.classic_kernels_supported(params, sharded=True)``)
+runs K9's plain version on the CUDA shards too.  Both boundary modes are
 exact, and the artifacts equal the single-device pipeline's for every
 mesh shape.
 """
@@ -35,7 +37,9 @@ from stereomatching_tpu_torch.config import (
     GHOST_BRIGHTNESS_FILL, BoundaryMode, StereoParams)
 from stereomatching_tpu_torch.ops.contour import contour_bands
 from stereomatching_tpu_torch.ops.edges import find_edges_padded
-from stereomatching_tpu_torch.ops.fused import match_and_score_prehalo
+from stereomatching_tpu_torch.models.classic import classic_kernels_supported
+from stereomatching_tpu_torch.ops.fused import (
+    match_and_score_prehalo, match_and_score_prehalo_reference)
 from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_step
 from stereomatching_tpu_torch.ops.matching import extend_right_edges
 from stereomatching_tpu_torch.parallel.halo import (
@@ -125,7 +129,9 @@ def _shard_forward(sh: Shards, left: torch.Tensor, right: torch.Tensor,
     [lr, lc, n])."""
     ws, x_off = sh.ws, (params.half if sh.has_cols else 0)
     edges_l, edges_r, k9 = prehalo_blocks(sh, left, right, params)
-    best, winner = match_and_score_prehalo(params=params, **k9)
+    kernel, _ = classic_kernels_supported(params, sharded=True)
+    k9_fn = match_and_score_prehalo if kernel else match_and_score_prehalo_reference
+    best, winner = k9_fn(params=params, **k9)
     if sh.has_cols:
         best = best[..., x_off:x_off + ws]
         winner = winner[..., x_off:x_off + ws]

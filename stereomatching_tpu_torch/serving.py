@@ -12,6 +12,12 @@
                                      median_filter=True, uniqueness=True))
     sgm.warmup((1024, 1024), batch=8)      # build the kernels before serving
 
+A stage whose CUDA kernel does not take the params (a square width above
+255, a tile past the card's shared memory, more than 256 disparities for
+K7 and K4) runs its plain torch version on the device; the matchers name
+those stages and the reasons in ``plain_stages`` ({stage: why}), decided
+from the params before any launch.
+
 ``Matcher`` accepts uint8 pixel arrays (brightness = pixel / 256,
 float32) or brightness floats; ``ModernMatcher`` takes 0..255 integer
 pixels.  Both take single pairs [H, W] or batches [B, H, W].
@@ -34,6 +40,7 @@ import torch
 
 from stereomatching_tpu_torch.config import ModernParams, StereoParams
 from stereomatching_tpu_torch.interop import artifacts_to_numpy
+from stereomatching_tpu_torch.models import classic, modern
 from stereomatching_tpu_torch.models.classic import ClassicPipeline
 from stereomatching_tpu_torch.models.modern import ModernPipeline
 from stereomatching_tpu_torch.utils.device import resolve_device
@@ -89,6 +96,7 @@ class Matcher:
     ):
         self.params = params or StereoParams(edge_rule="exact")
         self.mesh = mesh
+        self.plain_stages = classic.plain_stages(self.params, sharded=mesh is not None)
         if mesh is None:
             self.device = resolve_device(device)
             self.pipeline = ClassicPipeline(self.params).eval()
@@ -142,6 +150,7 @@ class ModernMatcher:
     ):
         self.params = params or ModernParams()
         self.mesh = mesh
+        self.plain_stages = modern.plain_stages(self.params)
         if mesh is None:
             self.device = resolve_device(device)
             self.pipeline = ModernPipeline(self.params).eval()

@@ -104,3 +104,52 @@ def load(name: str) -> ctypes.CDLL:
 @functools.cache
 def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
+
+
+def _cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program beside ``nvcc``."""
+    return str(Path(find_nvcc()).parent / name)
+
+
+def sass_counts(library: str | Path) -> dict:
+    """Shared-memory loads and stores and barriers in the SASS of each
+    kernel of a built library (``cuobjdump -sass``) -> {kernel name:
+    {"total": counts, "loops": [(start, end, counts), ...]}}, counts being
+    {"LDS": n, "STS": n, "BAR": n}; a loop is the address range from a
+    backward branch's target to the branch, so nested loops appear
+    inside their outer one."""
+    import re
+
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    names = {}
+    try:
+        mangled = sorted(set(re.findall(r"Function : (\S+)", sass)))
+        out = subprocess.run([_cuda_tool("cu++filt")], input="\n".join(mangled),
+                             capture_output=True, text=True, check=True).stdout.split("\n")
+        names = dict(zip(mangled, out))
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    inst = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    result = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        ops = [(int(a, 16), op, rest) for a, op, rest in inst.findall(part)]
+
+        def count(lo, hi):
+            c = {"LDS": 0, "STS": 0, "BAR": 0}
+            for addr, op, _ in ops:
+                if lo <= addr <= hi:
+                    for key in c:
+                        if op.startswith(key):
+                            c[key] += 1
+            return c
+
+        loops = []
+        for addr, op, rest in ops:
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+                start = int(m.group(1), 16)
+                loops.append((start, addr, count(start, addr)))
+        result[names.get(name, name)] = {"total": count(0, 1 << 62), "loops": loops}
+    return result

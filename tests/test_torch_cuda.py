@@ -29,11 +29,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (shape, D, square_width) for K1: K8's coverage (D 1 to 256, D > W;
+# windows 1, 21 and 255, the last past the two-word row-sum path) on
+# widths that are not a multiple of K1's 128-column tile (1, 31, 33, 129,
+# 200) and heights below and above one tile (128 rows; 64 with the
+# sub-pixel plane), batch 3.
+K1_CASES = [
+    ((3, 48, 64), 16, 21), ((2, 37, 45), 80, 5), ((1, 96, 128), 64, 21), ((2, 33, 70), 12, 3),
+    ((3, 20, 1), 1, 1), ((3, 70, 31), 30, 21), ((3, 65, 33), 256, 1), ((3, 130, 129), 64, 21),
+    ((3, 40, 200), 256, 21), ((3, 37, 45), 30, 255), ((3, 66, 129), 64, 255),
+    ((3, 37, 45), 256, 255), ((3, 33, 33), 1, 31), ((3, 29, 200), 40, 33),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape_shifts_sw",
-    [((3, 48, 64), 16, 21), ((2, 37, 45), 80, 5), ((1, 96, 128), 64, 21), ((2, 33, 70), 12, 3)],
-)
+@pytest.mark.parametrize("shape_shifts_sw", K1_CASES)
 @pytest.mark.parametrize("mode", MODES)
 def test_match_score_edges_kernel_matches_plain(cuda_device, mode, shape_shifts_sw):
     shape, d, sw = shape_shifts_sw
@@ -360,7 +370,20 @@ def test_match_and_score_wrapper_checks_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape_shifts_sw", [((3, 48, 64), 16, 21), ((2, 37, 45), 80, 5)])
+def test_smem_mirrors_match_the_libraries(cuda_device):
+    """The Python mirrors the routes are chosen by give the libraries'
+    own shared-memory figures over a grid of (half, D)."""
+    k1, k8 = fused._lib("match_score_edges"), fused._lib("match_and_score")
+    for half in (0, 1, 10, 15, 16, 50, 127, 150):
+        for d in (1, 2, 31, 32, 33, 64, 256, 257, 1000, 4000):
+            assert (fused.match_score_edges_smem_bytes(half, d)
+                    == k1.match_score_edges_smem_bytes(half, d)), (half, d)
+            assert (fused.match_and_score_smem_bytes(half, d)
+                    == k8.match_and_score_smem_bytes(half, d)), (half, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_shifts_sw", K1_CASES)
 @pytest.mark.parametrize("mode", MODES)
 def test_match_score_edges_subpixel_kernel_matches_plain(cuda_device, mode, shape_shifts_sw):
     shape, d, sw = shape_shifts_sw
@@ -672,3 +695,115 @@ def test_sharded_over_every_visible_gpu_in_one_process(cuda_device):
     got = build_sharded_modern_pipeline(mparams, mesh)(lp, rp)
     for k, v in modern.modern_forward(lp, rp, mparams).items():
         assert torch.equal(got[k].to(cuda_device), v), k
+
+
+def _pair(device, shape, seed, brightness):
+    rng = np.random.default_rng(seed)
+    pair = [rng.integers(0, 256, shape) for _ in range(2)]
+    if brightness:
+        return [torch.from_numpy(x.astype(np.float32) / 256.0).to(device) for x in pair]
+    return [torch.from_numpy(x.astype(np.int32)).to(device) for x in pair]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["reference", "exact"])
+def test_classic_square_width_301_route_equals_cpu(cuda_device, rule):
+    """sw 301 is past K1's and K8's 255: the matching stage runs its plain
+    version on the card (no K1 / K8 launch), K2 still runs, and every
+    artifact equals the CPU route's."""
+    from stereomatching_tpu_torch.models.classic import ClassicPipeline
+
+    params = StereoParams(num_shifts=8, square_width=301, edge_rule=rule, times=4)
+    left, right = _pair(cuda_device, (320, 320), 41, True)
+    counts = (fused.match_score_edges.launches, fused.match_and_score.launches,
+              fused_diffusion.fill_web_holes_range.launches)
+    got = ClassicPipeline(params)(left, right)
+    assert (fused.match_score_edges.launches, fused.match_and_score.launches) == counts[:2]
+    assert fused_diffusion.fill_web_holes_range.launches > counts[2]
+    want = ClassicPipeline(params)(left.cpu(), right.cpu())
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregation", ["box", "sgm"])
+def test_modern_320_disparities_route_equals_cpu(cuda_device, aggregation):
+    """D 320 is past K7's and K4's 256: ModernMatcher runs those stages'
+    plain versions on the card, the other kernels as usual, and returns the
+    CPU route's planes bit for bit."""
+    from stereomatching_tpu_torch.serving import ModernMatcher
+
+    params = ModernParams(num_disparities=320, aggregation=aggregation, cost="census")
+    rng = np.random.default_rng(42)
+    left, right = (rng.integers(0, 256, (2, 40, 352), dtype=np.uint8) for _ in range(2))
+    gpu = ModernMatcher(params, device="cuda")
+    stage = "disparity" if aggregation == "box" else "aggregate"
+    assert list(gpu.plain_stages) == [stage]
+    before = (fused_modern.disparity.launches, fused_sgm.sgm_directional.launches,
+              fused_diffusion.fill_invalid.launches)
+    got = gpu(left, right)
+    assert (fused_modern.disparity.launches, fused_sgm.sgm_directional.launches) == before[:2]
+    assert fused_diffusion.fill_invalid.launches > before[2]
+    want = ModernMatcher(params, device="cpu")(left, right)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and np.array_equal(got[k].view(np.uint8),
+                                                          v.view(np.uint8)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["box-d320", "classic-sw255-d200"])
+def test_sharded_plain_stage_route_equals_single_device(cuda_device, case):
+    """A config the predicate sends to plain on the sharded tier (rows 2 on
+    one card): K7 past D 256, K9 past its shared memory; equal to the
+    single-device route."""
+    from stereomatching_tpu_torch.models.classic import classic_forward_batched
+    from stereomatching_tpu_torch.parallel import (
+        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+
+    mesh = make_mesh(data=1, rows=2, devices=[cuda_device] * 2)
+    if case == "box-d320":
+        params = ModernParams(num_disparities=320)
+        left, right = _pair(cuda_device, (1, 40, 352), 43, False)
+        got = build_sharded_modern_pipeline(params, mesh)(left, right)
+        want = modern.modern_forward(left, right, params)
+    else:
+        params = StereoParams(num_shifts=200, square_width=255, times=4, lines=4)
+        left, right = _pair(cuda_device, (1, 320, 320), 44, True)
+        before = fused.match_and_score_prehalo.launches
+        got = build_sharded_pipeline(params, mesh)(left, right)
+        assert fused.match_and_score_prehalo.launches == before
+        want = classic_forward_batched(left, right, params)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k].to(cuda_device), v), k
+
+
+@pytest.mark.cuda
+def test_cli_square_width_301_cuda_equals_cpu(cuda_device, tmp_path, capsys):
+    """The CLI at sw 301: --tier cuda writes --tier cpu's PPMs and prints
+    one note line naming the plain stage."""
+    import os
+
+    from stereomatching_tpu_torch import cli
+    from stereomatching_tpu_torch.utils.imageio import write_png_gray
+
+    rng = np.random.default_rng(45)
+    a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    for path in (a, b):
+        write_png_gray(path, rng.integers(0, 256, (320, 320), dtype=np.uint8))
+    outs = {}
+    for tier in ("cuda", "cpu"):
+        outs[tier] = str(tmp_path / tier)
+        assert cli.main([a, b, "0.15", "301", "--shifts", "8", "--tier", tier,
+                         "--outdir", outs[tier]]) == 0
+        err = capsys.readouterr().err
+        notes = [line for line in err.splitlines() if line.startswith("note:")]
+        assert notes == (["note: plain torch on the GPU for match_and_score: "
+                          "square_width 301 > 255"] if tier == "cuda" else []), err
+    files = sorted(os.listdir(outs["cpu"]))
+    assert len(files) == 6 and sorted(os.listdir(outs["cuda"])) == files
+    for f in files:
+        with open(os.path.join(outs["cuda"], f), "rb") as x, \
+                open(os.path.join(outs["cpu"], f), "rb") as y:
+            assert x.read() == y.read(), f

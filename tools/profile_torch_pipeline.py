@@ -13,6 +13,7 @@ uniqueness).
     python3 tools/profile_torch_pipeline.py --pipeline box    # box route
     python3 tools/profile_torch_pipeline.py --pipeline sgm8   # 8-direction stack
     python3 tools/profile_torch_pipeline.py --pipeline sgm --mesh 1x4   # sharded tier
+    python3 tools/profile_torch_pipeline.py --k1-against DIR  # K1 against another K1
 
 Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
@@ -47,6 +48,16 @@ shards all on ``cuda:0``: device-resident ms/pair of the sharded pipeline
 beside the single-device one at batch 8 (5 repeats each), and the
 profiler over 3 sharded batches of 8 (device time per kernel name, busy
 share).
+
+With ``--k1-against DIR`` (``DIR`` holds another ``match_score_edges.cu``
+with the headers it includes, e.g. an earlier commit's, unpacked by
+``git show``) K1 against that version in one process: both built by
+``nvcc`` with the port's flags (the other into a temporary directory),
+outputs compared bitwise, device ms per batch of 8 (ghost, exact rule,
+1024x1024, 64 shifts, sw 21, with and without the sub-pixel plane) timed
+in turns other, this, this, other (CUDA events over 10 launches after a
+warmup), and the shared-memory loads, stores and barriers in each
+kernel's SASS (``cuobjdump -sass``): in total and in each loop.
 
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
@@ -415,19 +426,91 @@ def main_sharded(route: str, data: int, rows: int) -> None:
     profile_kernels(three, "sharded batch 8 x3")
 
 
+def print_sass(label: str, library) -> None:
+    from stereomatching_tpu_torch.utils.build import sass_counts
+
+    for name, c in sass_counts(library).items():
+        print(f"[sass {label}] {name}: total {c['total']}")
+        for start, end, counts in c["loops"]:
+            print(f"[sass {label}]   loop {start:#06x}-{end:#06x}: {counts}")
+
+
+def main_k1_against(src_dir: Path) -> None:
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import BoundaryMode, StereoParams
+    from stereomatching_tpu_torch.ops import fused
+    from stereomatching_tpu_torch.utils.build import NVCC_FLAGS, _target, build, find_nvcc
+
+    print(f"[card] {card()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        other_so = Path(tmp) / "match_score_edges_other.so"
+        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(other_so),
+                        str(src_dir / "match_score_edges.cu")], check=True)
+        this_so = build("match_score_edges")
+        print_sass("other", other_so)
+        print_sass("this", this_so)
+        other = ctypes.CDLL(str(other_so))
+        other.match_score_edges.argtypes = fused._SIGNATURES["match_score_edges"]
+        other.match_score_edges.restype = ctypes.c_int
+        params = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
+        rng = np.random.default_rng(SEED)
+        lt, rt = (torch.from_numpy(rng.integers(0, 256, (8, SIZE, SIZE), dtype=np.uint8)
+                                   .astype(np.float32) / 256).cuda() for _ in range(2))
+        for sub in (False, True):
+            outs = [torch.empty_like(lt, dtype=torch.int32) for _ in range(4)]
+            outs += [torch.empty_like(lt)] if sub else []
+
+            def run_other():
+                err = other.match_score_edges(
+                    lt.data_ptr(), rt.data_ptr(), *[o.data_ptr() for o in outs[:4]],
+                    outs[4].data_ptr() if sub else None, 8, SIZE, SIZE, params.half,
+                    params.num_shifts, 1, ctypes.c_float(params.threshold),
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"other K1 failed: CUDA error {err}")
+
+            def run_this():
+                return fused.match_score_edges(lt, rt, params, subpixel=sub)
+
+            run_other()
+            mine = run_this()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(mine, outs))
+            times = []
+            for label, fn in (("other", run_other), ("this", run_this),
+                              ("this", run_this), ("other", run_other)):
+                fn()
+                times.append((label, event_ms(fn, 10)))
+            print(f"[k1 against] subpixel={sub} outputs equal: {same}; ms per batch of 8 "
+                  + ", ".join(f"{label} {ms:.4f}" for label, ms in times), flush=True)
+            if not same:
+                sys.exit("the two K1 versions disagree")
+    print(f"[k1 against] this library: {_target('match_score_edges').name}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pipeline", choices=("classic", "reference", *MODERN),
                         default="classic")
     parser.add_argument("--mesh", metavar="DATAxROWS",
                         help="profile the sharded tier on a data x rows mesh on cuda:0")
+    parser.add_argument("--k1-against", metavar="DIR", type=Path,
+                        help="time K1 against the match_score_edges.cu in DIR")
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, str(ROOT))
-    if args.mesh:
+    if args.k1_against:
+        main_k1_against(args.k1_against.resolve())
+    elif args.mesh:
         data, rows = (int(x) for x in args.mesh.split("x"))
         main_sharded(args.pipeline, data, rows)
     elif args.pipeline in ("classic", "reference"):
