@@ -21,8 +21,12 @@ shard blocks, K4's seeded chain vs plain and vs the unsharded launch, the
 sharded classic slice (``Matcher(mesh=...)``), the sharded modern slices
 (SGM, 8 directions, box), the CLI's ``--tier sharded``, sharded times;
 the routes chosen before launch for configs past a kernel's limits
-(square width 301, D 320), equal to the CPU route; K1's shared-memory
-instruction counts in SASS.
+(square width 301, D 320), equal to the CPU route; K4 pass by pass
+(each direction, walk and write mode at the bench shape, with its bytes
+and their floor at 3.35 TB/s, and the byte floor of the 4- and 8-path
+sums: a ``{"k4_passes": ...}`` line); K1's
+shared-memory instruction counts and K4's global loads, stores, REDUX,
+SHFL and instructions per loop in SASS (``k1_sass``, ``k4_sass`` lines).
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -1170,14 +1174,60 @@ def main() -> None:
     print(f"[26 F5 routes] {'; '.join(f5_notes)}: planes == the CPU route bitwise, no "
           f"refused kernel launched", flush=True)
 
-    # K1's shift loop in SASS: shared-memory loads, stores and barriers in
-    # each kernel instance, in total and per loop (cuobjdump -sass).
-    from stereomatching_tpu_torch.utils.build import _target, sass_counts
+    # Phase 27: K4 pass by pass at the bench shape (census int8 volume of 8
+    # random 1024x1024 pairs, D=64, int16 aggregate): each (direction,
+    # reverse, accumulate) timed alone, beside the bytes it must move (the
+    # volume in and the aggregate out, plus the aggregate in when it
+    # accumulates) and that byte count's floor at 3.35 TB/s.
+    pix = [torch.from_numpy(rand_u8(BATCH, SIZE, SIZE)).to(dev).to(torch.int32) for _ in range(2)]
+    vol = fused_sgm.sgm_volume(*[costvolume.census_transform(x).contiguous() for x in pix],
+                               SHIFTS, "census", torch.int8)
+    agg = fused_sgm.sgm_aggregate_paths(vol, 8, 96, torch.int16)
+    del pix
+    k4_passes = []
+    for direction, reverse in sgm.PATHS + sgm.DIAG_PATHS:
+        for acc in (False, True):
+            nbytes = (vol.element_size() + agg.element_size() * (2 if acc else 1)) * nvox
+            pms = cuda_time_ms(lambda: fused_sgm.sgm_directional(
+                vol, agg, 8, 96, direction, reverse, accumulate=acc), 5)
+            k4_passes.append({"direction": direction, "reverse": reverse, "accumulate": acc,
+                              "ms": pms, "bytes": nbytes, "GB_per_s": nbytes / pms / 1e6,
+                              "floor_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    del vol, agg
+    # The byte floor of one pass per path, 4 and 8 paths: the first pass
+    # written, the rest added (k4_passes[2 i] is path i written, [2 i + 1]
+    # added).
+    k4_floors = {f"floor_ms_{n}path": k4_passes[0]["floor_ms"] + sum(
+        k4_passes[2 * i + 1]["floor_ms"] for i in range(1, n)) for n in (4, 8)}
+    print(f"[27 K4 passes] {smi}: 8x{SIZE}x{SIZE}, D={SHIFTS}, int8 volume, int16 aggregate: "
+          + ", ".join(f"dir {p['direction']} rev {int(p['reverse'])} acc {int(p['accumulate'])} "
+                      f"{p['ms']:.4f} ms ({p['GB_per_s']:.0f} GB/s, floor {p['floor_ms']:.4f})"
+                      for p in k4_passes), flush=True)
+    print(json.dumps({"k4_passes": k4_passes, **k4_floors}), flush=True)
 
-    k1_sass = {re.search(r"\w+_kernel(<[^>]*>)?", name).group(0): {"total": c["total"], "loops": [
+    # K1's shift loop in SASS: shared-memory loads, stores and barriers in
+    # each kernel instance, in total and per loop (cuobjdump -sass).  K4's
+    # step loop: global loads and stores, REDUX, SHFL and all instructions
+    # in the bench instances (int8 costs, int16 aggregate, 2 disparities per
+    # lane), each loop's in address order, and their registers.
+    from stereomatching_tpu_torch.utils.build import _target, resource_usage, sass_counts
+
+    def kernel_name(name):
+        return re.search(r"\w+_kernel(<[^>]*>)?", name).group(0)
+
+    k1_sass = {kernel_name(name): {"total": c["total"], "loops": [
         {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
         for name, c in sass_counts(_target("match_score_edges")).items()}
     print(json.dumps({"k1_sass": k1_sass}), flush=True)
+    k4_lib = _target("sgm_directional")
+    k4_regs = [r["REG"] for m, r in resource_usage(k4_lib).items() if "IasLi2E" in m]
+    k4_sass = {kernel_name(name): {"total": c["total"], "loops": [
+        {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
+        for name, c in sass_counts(k4_lib, ("LDG", "STG", "LDGSTS", "REDUX", "SHFL", "ALL"),
+                                   order=True).items()
+        if "signed char, short, (int)2," in name}
+    check(len(k4_sass) == len(k4_regs) > 0, f"K4's bench instances: {list(k4_sass)}, {k4_regs}")
+    print(json.dumps({"k4_sass": k4_sass, "k4_registers": sorted(k4_regs)}), flush=True)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -111,15 +112,11 @@ def _cuda_tool(name: str) -> str:
     return str(Path(find_nvcc()).parent / name)
 
 
-def sass_counts(library: str | Path) -> dict:
-    """Shared-memory loads and stores and barriers in the SASS of each
-    kernel of a built library (``cuobjdump -sass``) -> {kernel name:
-    {"total": counts, "loops": [(start, end, counts), ...]}}, counts being
-    {"LDS": n, "STS": n, "BAR": n}; a loop is the address range from a
-    backward branch's target to the branch, so nested loops appear
-    inside their outer one."""
-    import re
-
+def sass_counts(library: str | Path, ops=("LDS", "STS", "BAR"), order: bool = False) -> dict:
+    """Instructions of the op names ``ops`` (e.g. ``LDG``, ``STG``,
+    ``LDGSTS``, ``REDUX``, ``SHFL``; ``LDS``, ``STS`` and ``BAR`` by
+    default) in the SASS of each kernel of a built library (``cuobjdump
+    -sass``) -> ``parse_sass``'s dict, keyed by demangled kernel name."""
     sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library)],
                           capture_output=True, text=True, check=True).stdout
     names = {}
@@ -130,26 +127,61 @@ def sass_counts(library: str | Path) -> dict:
         names = dict(zip(mangled, out))
     except (OSError, subprocess.CalledProcessError):
         pass
-    inst = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    return parse_sass(sass, ops, order, names)
+
+
+_INST = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def parse_sass(sass: str, ops=("LDS", "STS", "BAR"), order: bool = False,
+               names: dict | None = None) -> dict:
+    """Count the instructions whose op name (the mnemonic before its first
+    ``.``, so ``LDG`` does not count ``LDGSTS``; ``ALL`` counts every
+    instruction) is in ``ops``, in each ``Function :`` section of
+    ``cuobjdump -sass`` text -> {kernel name:
+    {"total": counts, "loops": [(start, end, counts), ...]}}, counts being
+    {op: n}; a loop is the address range from a backward branch's target
+    to the branch, so nested loops appear inside their outer one.  With
+    ``order`` each loop's counts also hold "order": the loop's matching op
+    names in address order, space-separated (which loads a loop issues
+    before its first ``REDUX``, say).  ``names`` maps mangled to shown
+    kernel names."""
+    names = names or {}
     result = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        ops = [(int(a, 16), op, rest) for a, op, rest in inst.findall(part)]
+        insts = [(int(a, 16), op.split(".")[0], rest) for a, op, rest in _INST.findall(part)]
 
-        def count(lo, hi):
-            c = {"LDS": 0, "STS": 0, "BAR": 0}
-            for addr, op, _ in ops:
-                if lo <= addr <= hi:
-                    for key in c:
-                        if op.startswith(key):
-                            c[key] += 1
+        def count(lo, hi, with_order=False):
+            c = dict.fromkeys(ops, 0)
+            seq = []
+            for addr, op, _ in insts:
+                if not lo <= addr <= hi:
+                    continue
+                if "ALL" in c:
+                    c["ALL"] += 1
+                if op in c and op != "ALL":
+                    c[op] += 1
+                    seq.append(op)
+            if with_order:
+                c["order"] = " ".join(seq)
             return c
 
         loops = []
-        for addr, op, rest in ops:
+        for addr, op, rest in insts:
             m = re.search(r"0x([0-9a-f]+)", rest)
-            if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+            if op == "BRA" and m and int(m.group(1), 16) <= addr:
                 start = int(m.group(1), 16)
-                loops.append((start, addr, count(start, addr)))
+                loops.append((start, addr, count(start, addr, order)))
         result[names.get(name, name)] = {"total": count(0, 1 << 62), "loops": loops}
     return result
+
+
+def resource_usage(library: str | Path) -> dict:
+    """Registers, stack, shared and local memory of each kernel of a built
+    library (``cuobjdump -res-usage``) -> {mangled kernel name: {"REG": n,
+    "STACK": n, "SHARED": n, "LOCAL": n}}."""
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-res-usage", str(library)],
+                         capture_output=True, text=True, check=True).stdout
+    return {name: {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", res)}
+            for name, res in re.findall(r"Function (\S+?):?\s*\n\s*(REG:[^\n]*)", out)}

@@ -118,10 +118,18 @@ def test_sgm_volume_kernel_matches_plain(cuda_device, shape, cost_dtype, d):
     assert torch.equal(got, fused_sgm.sgm_volume_reference(ref, other, d, cost, dtype))
 
 
+# K4 also at 2 disparities a lane and more: ND = ceil(D / 32) is 4 at D 100
+# and 128, 8 at D 250 and 256.  K4's ring of copies takes a step's runs in
+# 16-byte chunks and whole lanes (D 64, 128, 256 at int8; D 100 at int32);
+# D 8, 11, 37, 100 and 250 at int8 take its element path, and D 37 and 250
+# leave a lane's run partly past D.
+K4_DISPARITIES = DISPARITIES + [37, 100, 128, 250, 256]
+K4_DTYPES = [(torch.int8, torch.int16), (torch.int16, torch.int16), (torch.int32, torch.int32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", DISPARITIES)
-@pytest.mark.parametrize("vol_agg", [(torch.int8, torch.int16), (torch.int16, torch.int16),
-                                     (torch.int32, torch.int32)])
+@pytest.mark.parametrize("d", K4_DISPARITIES)
+@pytest.mark.parametrize("vol_agg", K4_DTYPES)
 @pytest.mark.parametrize("shape", SGM_SHAPES)
 def test_sgm_directional_kernel_matches_plain(cuda_device, shape, vol_agg, d):
     """Each of the four paths alone (written), then the 4-path sum."""
@@ -143,9 +151,8 @@ def test_sgm_directional_kernel_matches_plain(cuda_device, shape, vol_agg, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", DISPARITIES)
-@pytest.mark.parametrize("vol_agg", [(torch.int8, torch.int16), (torch.int16, torch.int16),
-                                     (torch.int32, torch.int32)])
+@pytest.mark.parametrize("d", K4_DISPARITIES)
+@pytest.mark.parametrize("vol_agg", K4_DTYPES)
 @pytest.mark.parametrize("shape", SGM_SHAPES + [(2, 1, 37), (2, 29, 1)])
 def test_sgm_diagonal_paths_kernel_match_plain(cuda_device, shape, vol_agg, d):
     """Each of the four diagonal paths alone (written, then added onto a
@@ -168,6 +175,53 @@ def test_sgm_diagonal_paths_kernel_match_plain(cuda_device, shape, vol_agg, d):
     torch.cuda.synchronize()
     assert fused_sgm.sgm_directional.launches == before + 8
     assert torch.equal(got.to(torch.int32), sgm.sgm_aggregate(vol, p1, p2, directions=8))
+
+
+# Lines shorter than K4's ring of 8 steps in flight: an image of 1, 2 or
+# 3 rows or columns, so rows, columns and diagonals of 1 to 3 steps and
+# the ring's tail.
+SHORT_SHAPES = [(2, 1, 37), (2, 2, 29), (2, 3, 40), (2, 29, 1), (2, 37, 2), (2, 40, 3),
+                (1, 1, 1), (3, 2, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [11, 64, 100])
+@pytest.mark.parametrize("vol_agg", K4_DTYPES)
+@pytest.mark.parametrize("shape", SHORT_SHAPES)
+def test_sgm_directional_short_lines_match_plain(cuda_device, shape, vol_agg, d):
+    """All eight paths on lines shorter than the ring, written and added."""
+    vol_dtype, agg_dtype = vol_agg
+    rng = np.random.default_rng(27)
+    vol = torch.from_numpy(rng.integers(0, 25, (*shape, d)).astype(np.int32))
+    vol = vol.to(vol_dtype).to(cuda_device)
+    for direction, reverse in sgm.PATHS + sgm.DIAG_PATHS:
+        ref = fused_sgm.sgm_directional_reference(vol, 8, 96, direction, reverse)
+        agg = torch.full(vol.shape, -1, dtype=agg_dtype, device=cuda_device)
+        fused_sgm.sgm_directional(vol, agg, 8, 96, direction, reverse, accumulate=False)
+        assert torch.equal(agg.to(torch.int32), ref), (direction, reverse)
+        agg = torch.full(vol.shape, 5, dtype=agg_dtype, device=cuda_device)
+        fused_sgm.sgm_directional(vol, agg, 8, 96, direction, reverse, accumulate=True)
+        assert torch.equal(agg.to(torch.int32), ref + 5), (direction, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 100, 256])
+@pytest.mark.parametrize("vol_agg", K4_DTYPES)
+def test_sgm_directional_unaligned_runs_match_plain(cuda_device, vol_agg, d):
+    """Contiguous views one element into their storage: a lane's run is
+    then not aligned to one access, and K4 takes its element path."""
+    vol_dtype, agg_dtype = vol_agg
+    rng = np.random.default_rng(28)
+    shape = (2, 19, 23, d)
+    vol = torch.from_numpy(rng.integers(0, 25, shape).astype(np.int32)).to(vol_dtype)
+    vol_store = torch.zeros(vol.numel() + 1, dtype=vol_dtype, device=cuda_device)
+    vol_store[1:] = vol.flatten().to(cuda_device)
+    vol_c = vol_store[1:].view(shape)
+    agg = torch.zeros(vol.numel() + 1, dtype=agg_dtype, device=cuda_device)[1:].view(shape)
+    for direction, reverse in sgm.PATHS + sgm.DIAG_PATHS:
+        fused_sgm.sgm_directional(vol_c, agg, 8, 96, direction, reverse, accumulate=False)
+        ref = fused_sgm.sgm_directional_reference(vol_c, 8, 96, direction, reverse)
+        assert torch.equal(agg.to(torch.int32), ref), (direction, reverse)
 
 
 BOX_SHAPES = [(2, 37, 45), (1, 64, 96), (3, 19, 130)]
@@ -560,22 +614,29 @@ def test_match_and_score_prehalo_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bounds", [
+    [0, 7, 8, 19, 30],  # 4 row shards, one of a single row
+    [0, 2, 3, 5, 30],  # shards of 2, 1 and 2 rows, shorter than K4's ring
+])
+# D 40 takes K4's element path at int8 and int16 (runs of 40 and 80 bytes)
+# and its ring at int32; D 64 its ring at every type.
+@pytest.mark.parametrize("d", [40, 64])
 @pytest.mark.parametrize("dtypes", [(torch.int8, torch.int16), (torch.int16, torch.int16),
                                     (torch.int32, torch.int32)])
 @pytest.mark.parametrize("direction", [sgm.Y, sgm.DIAG_PLUS, sgm.DIAG_MINUS])
-def test_sgm_directional_seeded_chain_matches_plain_and_unsharded(cuda_device, direction, dtypes):
+def test_sgm_directional_seeded_chain_matches_plain_and_unsharded(cuda_device, direction, dtypes,
+                                                                 d, bounds):
     vdt, adt = dtypes
     rng = np.random.default_rng(32)
-    d = 40
     vol = torch.from_numpy(rng.integers(0, 60, (3, 30, 37, d)).astype(np.int32)).to(vdt)
     vol_c = vol.to(cuda_device)
-    bounds = [0, 7, 8, 19, 30]  # 4 row shards, one of a single row
+    n = len(bounds) - 1
     for reverse in (False, True):
         full = torch.zeros(vol.shape, dtype=adt, device=cuda_device)
         fused_sgm.sgm_directional(vol_c, full, 8, 96, direction, reverse, accumulate=False)
         agg = torch.zeros(vol.shape, dtype=adt, device=cuda_device)
         seed = seed_ref = None
-        order = range(4) if not reverse else reversed(range(4))
+        order = range(n) if not reverse else reversed(range(n))
         for j in order:
             part = slice(bounds[j], bounds[j + 1])
             a = agg[:, part].contiguous()

@@ -90,3 +90,56 @@ def test_wrappers_refuse_other_devices():
         fused.match_score_edges(meta, meta, params)
     with pytest.raises(ValueError):
         fused_diffusion.fill_web_holes_range(meta.to(torch.int32), 4)
+
+
+# A short `cuobjdump -sass` excerpt: a step loop (0x0100-0x01b0) whose
+# body loads ahead, reduces, shuffles and stores, nested in an outer loop
+# (0x0080-0x01d0), and an LDGSTS that must not count as an LDG.
+CANNED_SASS = """
+	code for sm_90a
+		Function : _Z6kernelPKaPs
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                         /* 0x00000a00ff017b82 */
+                                                                                  /* 0x000fe40000000800 */
+        /*0010*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;   /* 0x0000000004037fae */
+        /*0080*/                   IADD3 R2, R2, 0x1, RZ ;                        /* 0x0000000102027810 */
+        /*0100*/               @P0 LDG.E.U16.CONSTANT R6, desc[UR4][R4.64] ;      /* 0x0000000404060981 */
+        /*0110*/              @!P0 LDG.E R7, desc[UR4][R8.64] ;                   /* 0x0000000408078981 */
+        /*0120*/                   REDUX.MIN.S32 UR6, R10 ;                       /* 0x000000000a0673c4 */
+        /*0130*/                   SHFL.UP PT, R11, R12, 0x1, RZ ;                /* 0x04200000ff0b7389 */
+        /*0140*/                   SHFL.DOWN PT, R13, R14, 0x1, 0x1f ;            /* 0x0420000000ff7389 */
+        /*0150*/                   STG.E desc[UR4][R8.64], R15 ;                  /* 0x0000000f08007986 */
+        /*01b0*/               @P1 BRA 0x100 ;                                    /* 0xfffffffc00001947 */
+        /*01c0*/                   STG.E.U16 desc[UR4][R8.64], R15 ;              /* 0x0000000f08007986 */
+        /*01d0*/               @P2 BRA 0x80 ;                                     /* 0xfffffffc00002947 */
+        /*01e0*/                   BRA 0x1e0 ;                                    /* 0xfffffffc00007947 */
+        /*01f0*/                   EXIT ;                                         /* 0x000000000000794d */
+"""
+
+
+@pytest.mark.parametrize("ops, total, step_loop", [
+    (("LDG", "STG", "LDGSTS", "REDUX", "SHFL", "ALL"),
+     {"LDG": 2, "STG": 2, "LDGSTS": 1, "REDUX": 1, "SHFL": 2, "ALL": 14},
+     {"LDG": 2, "STG": 1, "LDGSTS": 0, "REDUX": 1, "SHFL": 2, "ALL": 7,
+      "order": "LDG LDG REDUX SHFL SHFL STG"}),
+    (("LDS", "STS", "BAR"), {"LDS": 0, "STS": 0, "BAR": 0},
+     {"LDS": 0, "STS": 0, "BAR": 0, "order": ""}),
+])
+def test_parse_sass_counts_ops_per_loop(ops, total, step_loop):
+    """``parse_sass`` counts the asked op names by mnemonic, in total and
+    in each loop (a backward branch's range, nested loops inside their
+    outer one, a branch to itself a loop of one instruction), and lists
+    each loop's ops in address order."""
+    from stereomatching_tpu_torch.utils.build import parse_sass
+
+    got = parse_sass(CANNED_SASS, ops, order=True, names={"_Z6kernelPKaPs": "kernel"})
+    assert list(got) == ["kernel"]
+    assert got["kernel"]["total"] == total
+    loops = got["kernel"]["loops"]
+    assert [(a, b) for a, b, _ in loops] == [(0x100, 0x1B0), (0x80, 0x1D0), (0x1E0, 0x1E0)]
+    assert loops[0][2] == step_loop
+    outer = {k: v for k, v in loops[1][2].items() if k != "order"}
+    # The outer loop holds all but the two instructions before it (the
+    # LDGSTS among them) and the two after it.
+    assert outer == {k: v - (k == "LDGSTS") - 4 * (k == "ALL") for k, v in total.items()}
+    assert "order" not in parse_sass(CANNED_SASS, ops)["_Z6kernelPKaPs"]["loops"][0][2]

@@ -14,6 +14,7 @@ uniqueness).
     python3 tools/profile_torch_pipeline.py --pipeline sgm8   # 8-direction stack
     python3 tools/profile_torch_pipeline.py --pipeline sgm --mesh 1x4   # sharded tier
     python3 tools/profile_torch_pipeline.py --k1-against DIR  # K1 against another K1
+    python3 tools/profile_torch_pipeline.py --k4-against DIR [DIR ...]  # K4 against others
 
 Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
@@ -58,6 +59,26 @@ outputs compared bitwise, device ms per batch of 8 (ghost, exact rule,
 in turns other, this, this, other (CUDA events over 10 launches after a
 warmup), and the shared-memory loads, stores and barriers in each
 kernel's SASS (``cuobjdump -sass``): in total and in each loop.
+
+With ``--k4-against DIR [DIR ...]`` (each ``DIR`` holds another
+``sgm_directional.cu``: the parent's, or a trial source) K4 against those
+versions in one process.  At the bench instance, the census int8 volume
+of 8 random pairs (1024x1024, D=64, int16 aggregate): every library's
+outputs compared bitwise with this one's (each of the 8 passes written
+and added, the 4- and 8-path sums, a seeded column launch's L and carry),
+then each pass, the two sums and a seeded column launch on a
+[8, 256, 1024, 64] shard timed in turns (the others, this, then the same
+in reverse; CUDA events over 10 launches, 5 for the sums after a
+warmup), each pass beside the bytes it must move, its GB/s and its floor
+at 3.35 TB/s.  Then at each instance of ``K4_SWEEP`` (D 64, 128 and 256;
+int8 / int16, int16 / int16 and int32 / int32 volume / aggregate; random
+costs at 8x1024x1024): the 8-path sum compared bitwise, then rows written
+and added, a diagonal family added and the 4- and 8-path sums timed in
+turns beside their byte floors.  For each library: the global loads and
+stores, cp.async copies (``LDGSTS``), shared loads, ``REDUX``, ``SHFL``
+and all instructions of the bench instance's SASS (each loop's in
+address order), and every instance's registers and local memory
+(``cuobjdump -res-usage``).
 
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
@@ -494,6 +515,209 @@ def main_k1_against(src_dir: Path) -> None:
     print(f"[k1 against] this library: {_target('match_score_edges').name}")
 
 
+K4_OPS = ("LDG", "STG", "LDGSTS", "LDS", "REDUX", "SHFL", "ALL")
+K4_BENCH = "signed char, short, (int)2,"  # int8 costs, int16 aggregate, 2 per lane
+# The other K4 instances timed by --k4-against: (D, volume, aggregate) at
+# 8 x 1024 x 1024; ND = ceil(D / 32) disparities a lane.
+K4_SWEEP = [(128, "int8", "int16"), (256, "int8", "int16"), (64, "int16", "int16"),
+            (128, "int16", "int16"), (256, "int16", "int16"), (64, "int32", "int32"),
+            (128, "int32", "int32"), (256, "int32", "int32")]
+
+
+def k4_entry(library):
+    """``sgm_directional`` of a built K4 library, ready for ctypes."""
+    import ctypes
+
+    from stereomatching_tpu_torch.ops import fused_sgm
+
+    fn = ctypes.CDLL(str(library)).sgm_directional
+    fn.argtypes = fused_sgm._SIGNATURES["sgm_directional"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k4_call(fn, vol, agg, direction, reverse, accumulate, seed=None, carry=None):
+    """One K4 launch of ``fn`` with the bench's P1 8, P2 96."""
+    import torch
+
+    b, h, w, d = vol.shape
+    err = fn(vol.data_ptr(), vol.element_size(), agg.data_ptr(), agg.element_size(), b, h, w, d,
+             8, 96, direction, int(reverse), int(accumulate),
+             None if seed is None else seed.data_ptr(), None if carry is None else carry.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
+
+
+def print_k4_build(label: str, library) -> None:
+    """SASS counts (``K4_OPS``, each loop's in address order) of the bench
+    instantiation of a K4 library, and the registers and local memory of
+    every instantiation."""
+    from stereomatching_tpu_torch.utils.build import resource_usage, sass_counts
+
+    for name, c in sass_counts(library, K4_OPS, order=True).items():
+        if K4_BENCH not in name:
+            continue
+        print(f"[sass {label}] {name}: total {c['total']}")
+        for start, end, counts in c["loops"]:
+            print(f"[sass {label}]   loop {start:#06x}-{end:#06x}: {counts}")
+    # mangled: directional_kernel<volume, aggregate, ND, CHAIN, ASYNC>
+    print(f"[regs {label}] " + "; ".join(
+        f"{m.split('directional_kernel')[-1]}: {r['REG']} regs, {r['LOCAL']} B local"
+        for m, r in resource_usage(library).items()), flush=True)
+
+
+def main_k4_against(src_dirs: list[Path]) -> None:
+    """K4 against other ``sgm_directional.cu`` sources in one process:
+    outputs compared bitwise, then each pass, the 4- and 8-path sums and a
+    seeded chain launch timed in turns at the bench instance, and a pass
+    of each kind and both sums at the instances of ``K4_SWEEP``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch.ops import costvolume, fused_sgm, sgm
+    from stereomatching_tpu_torch.utils.build import NVCC_FLAGS, _target, build, find_nvcc
+
+    smi = card()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [(d.name, Path(tmp) / f"k4_{d.name}.so", subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(Path(tmp) / f"k4_{d.name}.so"),
+             str(d / "sgm_directional.cu")])) for d in src_dirs]
+        libs = {"this": build("sgm_directional")}
+        for label, so, proc in procs:
+            if proc.wait() != 0:
+                sys.exit(f"nvcc failed for {label}")
+            libs[label] = so
+        print(f"[build] {', '.join(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+        for label, so in libs.items():
+            print_k4_build(label, so)
+        fns = {label: k4_entry(so) for label, so in libs.items()}
+        others = [k for k in fns if k != "this"]
+        order = [*others, "this"]
+        order = order + order[::-1]
+
+        def turns(make, iters):
+            times = []
+            for label in order:
+                fn = make(fns[label])
+                fn()
+                times.append((label, event_ms(fn, iters)))
+            return times
+
+        def same(what, fn_run):
+            ref = fn_run(fns["this"])
+            for label in others:
+                got = fn_run(fns[label])
+                if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                    sys.exit(f"K4 {label} differs from this on {what}")
+                del got
+            del ref
+
+        rng = np.random.default_rng(SEED)
+        dev = torch.device("cuda", 0)
+        pix = [torch.from_numpy(rng.integers(0, 256, (8, SIZE, SIZE), dtype=np.uint8)).to(dev)
+               .to(torch.int32) for _ in range(2)]
+        codes = [costvolume.census_transform(x).contiguous() for x in pix]
+        vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", torch.int8)
+        del pix, codes
+        nvox = vol.numel()
+        paths = sgm.PATHS + sgm.DIAG_PATHS
+
+        # Bitwise: each pass written and added onto a filled aggregate, the
+        # 4- and 8-path sums, a seeded chain launch (L and carry).
+        def run_pass(fn, vol, base, direction, reverse, acc):
+            a = base.clone()
+            k4_call(fn, vol, a, direction, reverse, acc)
+            return a
+
+        def run_sum(fn, vol, agg, n):
+            for i, (direction, reverse) in enumerate(paths[:n]):
+                k4_call(fn, vol, agg, direction, reverse, i > 0)
+            return agg
+
+        base = torch.full(vol.shape, 7, dtype=torch.int16, device=dev)
+        hs = SIZE // 4
+        shard = vol[:, hs:2 * hs].contiguous()
+        seed = torch.empty((8, SIZE, SHIFTS), dtype=torch.int32, device=dev)
+        k4_call(fns["this"], vol[:, :hs].contiguous(), torch.empty_like(shard, dtype=torch.int16),
+                sgm.Y, False, False, carry=seed)
+        chain_agg = torch.full(shard.shape, 7, dtype=torch.int16, device=dev)
+        chain_carry = torch.empty_like(seed)
+
+        def run_chain(fn):
+            a, c = chain_agg.clone(), torch.empty_like(seed)
+            k4_call(fn, shard, a, sgm.Y, False, True, seed=seed, carry=c)
+            return a, c
+
+        for d, r in paths:
+            for a in (False, True):
+                same(f"dir {d} rev {int(r)} acc {int(a)}",
+                     lambda fn, d=d, r=r, a=a: (run_pass(fn, vol, base, d, r, a),))
+        for n in (4, 8):
+            same(f"{n}-path sum", lambda fn, n=n: (run_sum(fn, vol, torch.empty_like(base), n),))
+        same("seeded column launch", run_chain)
+        torch.cuda.synchronize()
+        print(f"[k4 against] outputs equal: {', '.join(others)} == this on the 8 passes "
+              f"(written and added), the 4- and 8-path sums and a seeded column launch "
+              f"(8x{SIZE}x{SIZE}, D={SHIFTS}, census int8 volume, int16 aggregate)", flush=True)
+
+        agg = base.clone()
+        for direction, reverse in paths:
+            for acc in (False, True):
+                nbytes = (vol.element_size() + agg.element_size() * (2 if acc else 1)) * nvox
+                floor = nbytes / 3.35e12 * 1e3
+                times = turns(lambda fn: (lambda: k4_call(fn, vol, agg, direction, reverse, acc)), 10)
+                print(f"[k4 pass] dir {direction} rev {int(reverse)} acc {int(acc)}: "
+                      f"{nbytes / 1e9:.3f} GB, floor {floor:.4f} ms at 3.35 TB/s; ms (GB/s) "
+                      + ", ".join(f"{label} {ms:.4f} ({nbytes / ms / 1e6:.0f})"
+                                  for label, ms in times), flush=True)
+        for n in (4, 8):
+            nbytes = (n * vol.element_size() + (2 * n - 1) * agg.element_size()) * nvox
+            times = turns(lambda fn: (lambda: run_sum(fn, vol, agg, n)), 5)
+            print(f"[k4 sum] {n} paths: {nbytes / 1e9:.3f} GB, floor {nbytes / 3.35e12 * 1e3:.4f} "
+                  f"ms; ms " + ", ".join(f"{label} {ms:.4f}" for label, ms in times), flush=True)
+        cbytes = (1 + 2 * 2) * shard.numel() + 4 * 2 * seed.numel()
+        times = turns(lambda fn: (lambda: k4_call(fn, shard, chain_agg, sgm.Y, False, True,
+                                                  seed=seed, carry=chain_carry)), 10)
+        print(f"[k4 chain] seeded column launch on [8, {hs}, {SIZE}, {SHIFTS}] (accumulating, "
+              f"seed and carry): {cbytes / 1e9:.3f} GB, floor {cbytes / 3.35e12 * 1e6:.1f} us; us "
+              + ", ".join(f"{label} {ms * 1e3:.1f}" for label, ms in times), flush=True)
+        del vol, base, agg, shard, seed, chain_agg, chain_carry
+
+        # The other instances, on random costs in [0, 60]: the 8-path sum
+        # compared bitwise, then rows written and added, the (y+1, x+1)
+        # diagonals added, and the 4- and 8-path sums timed in turns.
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for d, vdt, adt in K4_SWEEP:
+            vdt, adt = getattr(torch, vdt), getattr(torch, adt)
+            vol = torch.randint(0, 61, (8, SIZE, SIZE, d), generator=gen, device=dev, dtype=vdt)
+            agg = torch.zeros(vol.shape, dtype=adt, device=dev)
+            same(f"D {d} {vdt} / {adt}", lambda fn: (run_sum(fn, vol, agg.clone(), 8),))
+            nvox, vb, ab = vol.numel(), vol.element_size(), agg.element_size()
+            cells = []
+            for what, nbytes, run, iters in [
+                ("rows written", (vb + ab) * nvox,
+                 lambda fn: (lambda: k4_call(fn, vol, agg, sgm.X, False, False)), 5),
+                ("rows added", (vb + 2 * ab) * nvox,
+                 lambda fn: (lambda: k4_call(fn, vol, agg, sgm.X, False, True)), 5),
+                ("diagonals added", (vb + 2 * ab) * nvox,
+                 lambda fn: (lambda: k4_call(fn, vol, agg, sgm.DIAG_PLUS, False, True)), 5),
+                ("4-path sum", (4 * vb + 7 * ab) * nvox, lambda fn: (lambda: run_sum(fn, vol, agg, 4)), 3),
+                ("8-path sum", (8 * vb + 15 * ab) * nvox, lambda fn: (lambda: run_sum(fn, vol, agg, 8)), 3),
+            ]:
+                times = turns(run, iters)
+                cells.append(f"{what} (floor {nbytes / 3.35e9:.4f}) "
+                             + ", ".join(f"{label} {ms:.4f}" for label, ms in times))
+            print(f"[k4 sweep] D {d}, {str(vdt)[6:]} volume, {str(adt)[6:]} aggregate, "
+                  f"8x{SIZE}x{SIZE}, outputs equal; ms: " + "; ".join(cells), flush=True)
+            del vol, agg
+    print(f"[k4 against] this library: {_target('sgm_directional').name}; card {smi}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pipeline", choices=("classic", "reference", *MODERN),
@@ -502,6 +726,8 @@ def main() -> None:
                         help="profile the sharded tier on a data x rows mesh on cuda:0")
     parser.add_argument("--k1-against", metavar="DIR", type=Path,
                         help="time K1 against the match_score_edges.cu in DIR")
+    parser.add_argument("--k4-against", metavar="DIR", type=Path, nargs="+",
+                        help="time K4 against the sgm_directional.cu in each DIR")
     args = parser.parse_args()
     import torch
 
@@ -510,6 +736,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     if args.k1_against:
         main_k1_against(args.k1_against.resolve())
+    elif args.k4_against:
+        main_k4_against([d.resolve() for d in args.k4_against])
     elif args.mesh:
         data, rows = (int(x) for x in args.mesh.split("x"))
         main_sharded(args.pipeline, data, rows)
