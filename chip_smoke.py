@@ -26,7 +26,11 @@ the routes chosen before launch for configs past a kernel's limits
 and their floor at 3.35 TB/s, and the byte floor of the 4- and 8-path
 sums: a ``{"k4_passes": ...}`` line); K1's
 shared-memory instruction counts and K4's global loads, stores, REDUX,
-SHFL and instructions per loop in SASS (``k1_sass``, ``k4_sass`` lines).
+SHFL and instructions per loop in SASS (``k1_sass``, ``k4_sass`` lines);
+K7's shared-memory loads and stores, barriers, shuffles and instructions
+per loop in the SASS of its SAD kernels at D=64, with every K7 kernel's
+registers (``k7_sass``), and K7's time over its sweep of windows, D and
+costs beside each instance's bound (``k7_instances``).
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -45,6 +49,7 @@ each slice's disparity plane is also checked against that ground truth.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -63,14 +68,6 @@ SGM_TRUTH_SHARE = 0.9998
 # and 99.9935% on the worst of the four on an H100, floored here.
 BOX_TRUTH_SHARE = 0.9999
 SGM8_TRUTH_SHARE = 0.9999
-
-# The card's peaks for the bounds (NVIDIA H100 SXM data sheet and Hopper
-# white paper): 3.35 TB/s of HBM3; 64 INT32 lanes per SM x 132 SMs x
-# 1.98 GHz boost = 16.7 T int32 ops/s; 67 TFLOP/s float32 outside the
-# tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-FP32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -100,13 +97,6 @@ def same(a, b) -> bool:
     if a.is_floating_point():
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
-    """-> (least ms the card could take, "bytes" or "operations")."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ops_per_s * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def u8_to_brightness(x):
@@ -206,6 +196,9 @@ def main() -> None:
     from stereomatching_tpu_torch.ops import (
         costvolume, fused, fused_diffusion, fused_modern, fused_sgm, sgm)
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
+    from stereomatching_tpu_torch.utils.bench import (
+        FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S, K7_BENCH_KERNELS, K7_SWEEP, bound,
+        k7_bound_ms)
     from stereomatching_tpu_torch.utils.build import build_all
 
     dev = torch.device("cuda", 0)
@@ -497,11 +490,15 @@ def main() -> None:
 
     # Phase 10: K7 against its plain version at 4x1024x1024, D=64: SAD with
     # window 9 and census with window 5, each for both reference views;
-    # then SAD windows 31 (both views staged in shared memory) and 101 (read
-    # through L1) on one pair.  Disparity, subpixel and cost bitwise.
+    # then on one pair SAD windows 31 and 101 (the warp strips, as the two
+    # before), census window 9 at D=256 (the tiles, both views staged in
+    # shared memory) and census window 101 (the tiles, read through L1).
+    # Disparity, subpixel and cost bitwise.
     k7_err, notes = 0, []
-    for cost, window, n in (("sad", 9, 4), ("census", 5, 4), ("sad", 31, 1), ("sad", 101, 1)):
-        p = ModernParams(num_disparities=SHIFTS, cost=cost, window=window)
+    for cost, window, n, d in (("sad", 9, 4, SHIFTS), ("census", 5, 4, SHIFTS),
+                               ("sad", 31, 1, SHIFTS), ("sad", 101, 1, SHIFTS),
+                               ("census", 9, 1, 256), ("census", 101, 1, SHIFTS)):
+        p = ModernParams(num_disparities=d, cost=cost, window=window)
         pix = [torch.from_numpy(rand_u8(n, SIZE, SIZE)).to(dev).to(torch.int32)
                for _ in range(2)]
         codes = [costvolume.census_transform(x).contiguous() for x in pix] if cost == "census" else pix
@@ -514,10 +511,9 @@ def main() -> None:
                 k7_err = max(k7_err, err)
                 check(same(a, b), f"K7 {cost} window {window} {reference} {what} differs "
                       f"from plain (max |d| {err})")
-        notes.append(f"{cost} window {window} x{n} "
-                     f"({'staged' if fused_modern.staged(p) else 'through L1'})")
+        notes.append(f"{cost} window {window} D {d} x{n} ({fused_modern.route(p)})")
     del pix, codes, got, ref
-    print(f"[10 K7] {SIZE}x{SIZE}, D={SHIFTS}, both reference views: disparity, subpixel, "
+    print(f"[10 K7] {SIZE}x{SIZE}, both reference views: disparity, subpixel, "
           f"cost == plain bitwise ({'; '.join(notes)}; max |d| {k7_err})", flush=True)
 
     # Phase 11: K4's four diagonal paths and the 8-path sum against their
@@ -631,11 +627,10 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     sgm8_ms = cuda_time_ms(lambda: qpipe(*big), 3) / SGM_BENCH_BATCH
     sgm8_peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    # K7 (one launch, one view of 8 pairs): two int32 planes in, three
-    # 4-byte planes out; per pixel and d ~12 int ops (cost 2, the two
-    # running box sums 4, the argmin carries 6).  K4 x 8: the int8 volume
-    # in, the int16 aggregate out; ~9 int ops per element and path.
-    k7_bound = bound(20 * npix, 12 * npix * SHIFTS, INT32_OPS_PER_S)
+    # K7 (one launch, one view of 8 pairs): ``k7_bound_ms``.  K4 x 8: the
+    # int8 volume in, the int16 aggregate out; ~9 int ops per element and
+    # path.
+    k7_bound = k7_bound_ms("sad", npix, SHIFTS)
     qvb = torch.tensor([], dtype=qst).element_size()
     qab = torch.tensor([], dtype=qodt).element_size()
     k4_8_bound = bound((qvb + qab) * nvox, 8 * 9 * nvox, INT32_OPS_PER_S)
@@ -743,7 +738,6 @@ def main() -> None:
     # (wrap, reference rule) on a shifted-texture pair written as PNGs, its
     # PPMs against the plain pipeline's rendering; then the modern pipeline's
     # SGM route at scales=2, its disparity.npz against the plain route.
-    import re
     import tempfile
 
     from stereomatching_tpu_torch.utils.imageio import (
@@ -1228,6 +1222,43 @@ def main() -> None:
         if "signed char, short, (int)2," in name}
     check(len(k4_sass) == len(k4_regs) > 0, f"K4's bench instances: {list(k4_sass)}, {k4_regs}")
     print(json.dumps({"k4_sass": k4_sass, "k4_registers": sorted(k4_regs)}), flush=True)
+
+    # K7's SAD kernels at D=64 (the warp strips, ND 2, which the bench
+    # instance runs, and the staged tiles): shared-memory loads and stores,
+    # barriers, shuffles, REDUX and all instructions per loop, and every
+    # kernel's registers.  The strips keep their one block barrier out of
+    # every loop.
+    k7_lib = _target("disparity")
+    k7_sass = {kernel_name(name): {"total": c["total"], "loops": [
+        {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
+        for name, c in sass_counts(k7_lib, ("LDS", "STS", "BAR", "SHFL", "REDUX", "ALL")).items()
+        if K7_BENCH_KERNELS.search(name)}
+    check(len(k7_sass) == 2, f"K7's bench kernels in SASS: {list(k7_sass)}")
+    for name, c in k7_sass.items():
+        if name.startswith("strips"):
+            check(c["total"]["BAR"] == 1 and all(loop["BAR"] == 0 for loop in c["loops"]),
+                  f"K7 strips: a block barrier inside a loop ({c})")
+    k7_regs = {re.sub(r".*?(strips|disparity)_kernelI(\w+?)EE.*", r"\1 \2", m): r["REG"]
+               for m, r in resource_usage(k7_lib).items()}
+    print(json.dumps({"k7_sass": k7_sass, "k7_registers": k7_regs}), flush=True)
+
+    # K7 over the sweep of tools/profile_torch_pipeline.py (8 random
+    # 1024x1024 pairs, the left view): each instance's kernel, time and
+    # bound.  Census codes are those of the 5x5 transform (24 bits).
+    pix = [torch.from_numpy(rand_u8(BATCH, SIZE, SIZE)).to(dev).to(torch.int32) for _ in range(2)]
+    codes = [costvolume.census_transform(x).contiguous() for x in pix]
+    k7_instances = []
+    for cost, window, d in K7_SWEEP:
+        p = ModernParams(num_disparities=d, cost=cost, window=window)
+        a, b = codes if cost == "census" else pix
+        kms = cuda_time_ms(lambda: fused_modern.disparity(a, b, p, "left"),
+                           10 if window < 50 else 2)
+        kb = k7_bound_ms(cost, npix, d)
+        k7_instances.append({"cost": cost, "window": window, "D": d,
+                             "route": fused_modern.route(p), "ms": kms,
+                             "bound_ms": kb[0], "bound_by": kb[1]})
+    del pix, codes
+    print(json.dumps({"k7_instances": k7_instances, "card": smi}), flush=True)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

@@ -288,25 +288,44 @@ def disparity_one_view(
     R(x - d), the right one R(x) against L(x + d).  For census both images
     go through the census transform first.  At ``scales=1`` K7 on CUDA
     tensors, its plain version on CPU tensors; at ``scales=2`` torch ops."""
-    _check_inputs(left, right)
+    _check_inputs(left, right, params)
     if reference not in ("left", "right"):
         raise ValueError(f"reference must be 'left' or 'right', got {reference!r}")
     return _box_views(left, right, params, _route(params), (reference,))[0]
 
 
 def _forward(left, right, params: ModernParams, route: _Route) -> Outputs:
-    _check_inputs(left, right)
+    _check_inputs(left, right, params)
     fwd = _sgm_forward if params.aggregation == "sgm" else _box_forward
     return fwd(left, right, params, route)
 
 
-def _check_inputs(left: torch.Tensor, right: torch.Tensor) -> None:
+def _check_inputs(left: torch.Tensor, right: torch.Tensor, params: ModernParams) -> None:
     if left.shape != right.shape:
         raise ValueError("the two images must have equal width and height")
     if left.ndim not in (2, 3):
         raise ValueError(f"need [H, W] or [B, H, W], got {tuple(left.shape)}")
     if left.is_floating_point() or right.is_floating_point():
         raise ValueError("modern_forward takes integer pixel planes 0..255")
+    check_sad_pixels(left, right, params)
+
+
+def check_sad_pixels(left: torch.Tensor, right: torch.Tensor, params: ModernParams) -> None:
+    """Raise unless the pixels are 0..255 where K7 matches them by SAD
+    (box route, ``scales=1``): it stages them as bytes and keeps 16-bit
+    column sums, so other values would give other planes on the card than
+    on the CPU.  Held on every device, so both take the same inputs.
+    uint8 planes pass unread; others cost one min/max pass and, on the
+    card, a host sync."""
+    if params.aggregation != "box" or params.cost != "sad" or params.scales != 1:
+        return
+    planes = [x for x in (left, right) if x.dtype not in (torch.uint8, torch.bool) and x.numel()]
+    if not planes:
+        return
+    ext = torch.stack([v.to(torch.int64) for x in planes for v in torch.aminmax(x)]).tolist()
+    if min(ext) < 0 or max(ext) > 255:
+        raise ValueError(f"the box route with SAD takes pixel values 0..255, got "
+                         f"{min(ext)}..{max(ext)}")
 
 
 def modern_forward(left: torch.Tensor, right: torch.Tensor, params: ModernParams) -> Outputs:

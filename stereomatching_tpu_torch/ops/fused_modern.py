@@ -35,15 +35,22 @@ def _lib() -> ctypes.CDLL:
     lib = load("disparity")
     lib.disparity.argtypes = [_P] * 5 + [_I] * 7 + [_P]
     lib.disparity.restype = ctypes.c_int
-    lib.disparity_staged.argtypes = [_I, _I]
-    lib.disparity_staged.restype = ctypes.c_int
+    lib.disparity_route.argtypes = [_I, _I, _I]
+    lib.disparity_route.restype = ctypes.c_int
     return lib
 
 
-def staged(params: ModernParams) -> bool:
-    """Whether K7 stages both views in shared memory for ``params``'
-    window and D (else it reads them through L1).  Builds the kernel."""
-    return bool(_lib().disparity_staged(params.window // 2, params.num_disparities))
+ROUTES = ("strips", "tiles staged", "tiles through L1")
+
+
+def route(params: ModernParams) -> str:
+    """Which of K7's kernels runs ``params``' cost, window and D:
+    ``"strips"`` (a warp per 32-column strip, disparities across its
+    lanes), else the tile kernel with both views staged in shared memory
+    (``"tiles staged"``) or read through L1 (``"tiles through L1"``).
+    Builds the kernel."""
+    return ROUTES[_lib().disparity_route(params.window // 2, params.num_disparities,
+                                         int(params.cost == "census"))]
 
 
 def disparity_reference(
@@ -64,7 +71,11 @@ def disparity(
     ``reference="left"`` matches ref(x) against other(max(x - d, 0)),
     ``"right"`` against other(min(x + d, W - 1)).  CPU tensors run the
     plain version, CUDA tensors K7 (``scales=1``, window <= 255,
-    D <= 256)."""
+    D <= 256).  K7 takes the inputs the pipeline feeds: intensities
+    0..255 for SAD, census codes of at most 24 set bits (``census_window``
+    <= 5); its strips keep 16-bit column sums and 24-bit costs, so other
+    values give other results.  This op does not read its inputs to check
+    them; the pipelines do (``models.modern.check_sad_pixels``)."""
     if reference not in ("left", "right"):
         raise ValueError(f"reference must be 'left' or 'right', got {reference!r}")
     if params.scales != 1:

@@ -42,7 +42,8 @@ import torch
 
 from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.models.modern import (
-    _sgm_out_dtype, _sgm_storage_dtype, _uniqueness_ratio, modern_kernels_supported)
+    _sgm_out_dtype, _sgm_storage_dtype, _uniqueness_ratio, check_sad_pixels,
+    modern_kernels_supported)
 from stereomatching_tpu_torch.ops import costvolume, fused_modern, fused_sgm, sgm
 from stereomatching_tpu_torch.ops.costvolume import (
     DisparityResult, _aggregate, argmin_subpixel_scan, census_transform, pixel_cost)
@@ -400,6 +401,7 @@ def sharded_modern_forward(left, right, params: ModernParams, mesh: Mesh) -> Out
     left, right = _as_tensor(left), _as_tensor(right)
     if left.is_floating_point() or right.is_floating_point():
         raise ValueError("sharded_modern_forward takes integer pixel planes 0..255")
+    check_sad_pixels(left, right, params)
     _validate(tuple(left.shape), params, mesh)
     if params.aggregation == "sgm":
         body = _sgm_shard_forward

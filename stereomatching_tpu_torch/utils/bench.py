@@ -1,0 +1,61 @@
+"""The card's peak rates and the bounds that ``chip_smoke.py`` and
+``tools/profile_torch_pipeline.py`` hold the kernels' times against, and
+the K7 instances both of them time, kept in one place."""
+
+from __future__ import annotations
+
+import re
+
+# Peaks of one H100 SXM (NVIDIA data sheet and Hopper white paper; 132 SMs
+# at 1.98 GHz boost): 3.35 TB/s of HBM3; 64 int32 adds, logic ops or
+# compares per SM per clock = 16.7 T int32 ops/s; 16 population counts per
+# SM per clock (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions, compute capability 9.0); 67 TFLOP/s float32 outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+POPC_PER_S = 132 * 16 * 1.98e9
+FP32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """-> (least ms the card could take, "bytes" or "operations")."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+# K7's timed instances, at 8 x 1024 x 1024: (cost, window, D).  The first
+# is the box route's default (the bench instance).  The census ones (codes
+# of the 5x5 transform) are those K7's census route rule is read from:
+# strips giving 1 to 8 warps per SM, and the tiles staged or read through
+# L1 (the last six from census window 31, D=128).
+K7_SWEEP = [("sad", 9, 64), ("sad", 1, 64), ("sad", 5, 64), ("sad", 15, 64), ("sad", 31, 64),
+            ("sad", 9, 128), ("sad", 9, 256), ("sad", 101, 64)] + [
+    ("census", w, d) for w, d in ((9, 64), (9, 128), (9, 192), (15, 128), (21, 64), (31, 64),
+                                  (9, 256), (15, 192), (31, 128), (31, 256), (51, 64),
+                                  (51, 128), (51, 256), (101, 64))]
+# The SAD kernels at D=64 (ND 2) of the strips and the staged tiles, as
+# cu++filt shows them (bools as false/true or (bool)0/1) or mangled.
+K7_BENCH_KERNELS = re.compile(
+    r"strips_kernel(<(false|\(bool\)0), \(int\)2>|ILb0ELi2E)"
+    r"|disparity_kernel(<(false|\(bool\)0), (true|\(bool\)1)>|ILb0ELb1E)")
+
+
+def k7_bound_ms(cost: str, npix: int, d: int) -> tuple[float, str]:
+    """K7's least time on the card for ``npix`` pixels at ``d``
+    disparities: per pixel and disparity 5 int32 instructions, one per
+    value and step: the cost (an absolute difference; for census an XOR
+    and a population count on its own unit), the column sum's update and
+    the row sum's (one 3-input add each: sum + entering - leaving), the
+    key ``cost << 8 | d`` (one shift-add) and the running minimum; for
+    census the larger of that time and the population counts'.  Sub-word
+    SIMD (four differences per ``__vabsdiffu4``, two 16-bit sums per add)
+    would go lower and is not counted.  Bytes: 8 in and 12 out per pixel.
+    -> (ms, "operations" or "bytes")."""
+    pxd = npix * d
+    ops_ms = 5 * pxd / INT32_OPS_PER_S * 1e3
+    if cost == "census":
+        ops_ms = max(ops_ms, pxd / POPC_PER_S * 1e3)
+    bytes_ms = 20 * npix / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")

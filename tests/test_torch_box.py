@@ -27,6 +27,7 @@ from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.interop import params_from_jax
 from stereomatching_tpu_torch.models import modern
 from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_modern
+from stereomatching_tpu_torch.parallel import make_mesh, sharded_modern_forward
 from stereomatching_tpu_torch.serving import ModernMatcher
 from tests.util import synthetic_pair
 
@@ -70,6 +71,53 @@ def test_extend_right_and_zero_padded_aggregate():
     for half in (0, 1, 4, 9):
         assert_same(costvolume._aggregate(torch.from_numpy(x), half),
                     j_cv._aggregate(jnp.asarray(x), half))
+
+
+def direct_reading(costs):
+    """The argmin that K7's strips read off their keys, from a cost stack
+    [D, ...]: the first d of minimum cost, the costs at d - 1 and d + 1
+    (2^30 past either end), then the parabola in argmin_subpixel_scan's
+    float32 op order -> (disparity, subpixel, cost)."""
+    big = np.int32(1 << 30)
+    d = costs.shape[0]
+    best_d = np.argmin(costs, axis=0)  # numpy's argmin takes the first minimum
+    take = lambda i: np.take_along_axis(costs, i[None], axis=0)[0]  # noqa: E731
+    best = take(best_d)
+    c_left = np.where(best_d > 0, take(np.maximum(best_d - 1, 0)), big)
+    c_right = np.where(best_d < d - 1, take(np.minimum(best_d + 1, d - 1)), big)
+    cl, cm, cr = (torch.from_numpy(x.astype(np.float32)) for x in (c_left, best, c_right))
+    denom = cl - 2.0 * cm + cr
+    valid = torch.from_numpy((c_left < big) & (c_right < big)) & (denom > 0)
+    offset = torch.where(valid, (cl - cr) / torch.where(valid, 2.0 * denom, 1.0), 0.0)
+    offset = offset.clamp(-0.5, 0.5)
+    bd = torch.from_numpy(best_d.astype(np.int32))
+    return bd, bd.to(torch.float32) + offset, torch.from_numpy(best.astype(np.int32))
+
+
+@pytest.mark.parametrize("d", [1, 2, 5, 33, 64])
+def test_argmin_scan_equals_the_direct_reading(d):
+    """argmin_subpixel_scan's carries end as the first minimum d*, C[d* - 1]
+    and C[d* + 1] (2^30 at the ends), which K7's strips read directly off
+    their per-pixel keys: the port's and the JAX scan's three planes equal
+    that reading's, bit for bit, on random stacks and tie-heavy ones (costs
+    0..3, plateaus, an all-equal pixel, a minimum only at D - 1, one only at
+    0)."""
+    rng = np.random.default_rng(d)
+    random = rng.integers(0, 1 << 20, (d, 3, 5))
+    ties = rng.integers(0, 4, (d, 3, 5))
+    ties[:, 0, 0] = 7  # all equal: d* = 0
+    ties[:, 0, 1] = np.arange(d, 0, -1)  # falling: the minimum only at D - 1
+    ties[:, 0, 2] = np.arange(d)  # rising: the minimum only at 0
+    ties[:, 0, 3] = 5
+    ties[d // 2:, 0, 3] = 2  # a plateau from D / 2 to the end
+    for costs in (random.astype(np.int32), ties.astype(np.int32)):
+        want = direct_reading(costs)
+        got = costvolume.argmin_subpixel_scan(lambda i: torch.from_numpy(costs[i]), d)
+        jcosts = jnp.asarray(costs)
+        jgot = jax.device_get(j_cv.argmin_subpixel_scan(lambda i: jcosts[i], d, (3, 5)))
+        for ours, theirs, ref in zip(got, jgot, want):
+            assert_same(ours, ref.numpy())
+            assert_same(theirs, ref.numpy())
 
 
 @pytest.mark.parametrize("window", [1, 9, 15])
@@ -168,3 +216,35 @@ def test_modern_matcher_default_is_the_box_route():
     single = m(lu[1], ru[1])
     for k, v in out.items():
         assert np.array_equal(single[k], v[1]), k
+
+
+@pytest.mark.parametrize("bad", [256, -1])
+@pytest.mark.parametrize("entry", ["forward", "one_view", "matcher", "sharded"])
+def test_box_sad_refuses_pixels_outside_0_255(entry, bad):
+    """K7 matches SAD intensities as bytes, so the box route with SAD at
+    scales=1 refuses wider integer planes holding a value outside 0..255,
+    on every device alike; in-range int16 planes give the uint8 planes'
+    results, and census or the SGM route take such planes as before."""
+    lu, ru = pixel_batch(1, 12, 20, seed=5)
+    params = ModernParams(num_disparities=8)
+    wide = lu.astype(np.int16)
+    wide[0, 3, 4] = bad
+
+    def run(p, left):
+        if entry == "matcher":
+            return ModernMatcher(p, device="cpu")(left, ru)
+        lt, rt = torch.from_numpy(left), torch.from_numpy(ru)
+        if entry == "one_view":
+            return modern.disparity_one_view(lt, rt, p)._asdict()
+        if entry == "sharded":
+            mesh = make_mesh(data=1, rows=1, devices=["cpu"])
+            return sharded_modern_forward(lt, rt, p, mesh)
+        return modern.modern_forward(lt, rt, p)
+
+    with pytest.raises(ValueError, match="0..255"):
+        run(params, wide)
+    want = run(params, lu)
+    for k, v in run(params, lu.astype(np.int16)).items():
+        assert np.array_equal(np.asarray(v), np.asarray(want[k])), k
+    run(ModernParams(num_disparities=8, cost="census"), wide)
+    run(ModernParams(num_disparities=8, aggregation="sgm"), wide)

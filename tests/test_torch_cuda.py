@@ -224,34 +224,108 @@ def test_sgm_directional_unaligned_runs_match_plain(cuda_device, vol_agg, d):
         assert torch.equal(agg.to(torch.int32), ref), (direction, reverse)
 
 
-BOX_SHAPES = [(2, 37, 45), (1, 64, 96), (3, 19, 130)]
+# K7's shapes: two below a strip of 32 columns, one ragged at 130, and
+# the edges: one row, one column, a width below most D, a height past two
+# tiles of rows.
+BOX_SHAPES = [(2, 37, 45), (1, 64, 96), (3, 19, 130), (3, 1, 45), (2, 29, 1), (1, 13, 20),
+              (1, 150, 40)]
+
+
+def k7_route(cost, window, d):
+    """The kernel K7 runs for the cases below (``csrc/disparity.cu``: SAD
+    strips wherever they fit in shared memory, census strips with 4 or
+    more warps per SM; else the tiles, staged in 116 KB or read through
+    L1)."""
+    if cost == "sad":
+        return "tiles through L1" if window == 255 and d >= 33 else "strips"
+    if window >= 101:
+        return "tiles through L1"
+    if d == 256 or (window == 31 and d == 100):
+        return "tiles staged"
+    return "strips"
+
+
+def assert_k7_matches_plain(ref, other, params, device):
+    ref_t, other_t = (torch.from_numpy(x.astype(np.int32)).to(device) for x in (ref, other))
+    for reference in ("left", "right"):
+        before = fused_modern.disparity.launches
+        got = fused_modern.disparity(ref_t, other_t, params, reference)
+        torch.cuda.synchronize()
+        assert fused_modern.disparity.launches == before + 1
+        want = fused_modern.disparity_reference(ref_t, other_t, params, reference)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                                      b.view(torch.int32)), reference
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 11, 64, 256])
-@pytest.mark.parametrize("window", [1, 9, 31, 101])
+@pytest.mark.parametrize("d", [2, 8, 11, 33, 64, 100, 256])
+@pytest.mark.parametrize("window", [1, 9, 31, 101, 255])
 @pytest.mark.parametrize("cost", ["sad", "census"])
 def test_disparity_kernel_matches_plain(cuda_device, cost, window, d):
-    """K7 against its plain version, both references; windows 1-31 stage
-    both views in shared memory, 101 reads them through L1."""
+    """K7 against its plain version, both references, on shapes smaller
+    than a strip or a tile and ragged ones; D that do not fill the lanes
+    (2, 33, 100) beside 8, 11, 64, 256; each route (``k7_route``)."""
     params = ModernParams(num_disparities=d, window=window, cost=cost)
-    assert fused_modern.staged(params) == (window < 100)
+    assert fused_modern.route(params) == k7_route(cost, window, d)
     rng = np.random.default_rng(27)
     for shape in BOX_SHAPES:
         hi = 1 << 24 if cost == "census" else 256
-        ref = rng.integers(0, hi, shape).astype(np.int32)
+        ref = rng.integers(0, hi, shape)
         other = np.clip(np.roll(ref, 3, axis=2) + rng.integers(-2, 3, shape), 0, hi - 1)
-        ref_t, other_t = (torch.from_numpy(x.astype(np.int32)).to(cuda_device)
-                          for x in (ref, other))
-        for reference in ("left", "right"):
-            before = fused_modern.disparity.launches
-            got = fused_modern.disparity(ref_t, other_t, params, reference)
-            torch.cuda.synchronize()
-            assert fused_modern.disparity.launches == before + 1
-            want = fused_modern.disparity_reference(ref_t, other_t, params, reference)
-            for a, b in zip(got, want):
-                assert a.dtype == b.dtype and torch.equal(a.view(torch.int32),
-                                                          b.view(torch.int32)), reference
+        assert_k7_matches_plain(ref, other, params, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 33, 64, 256])
+@pytest.mark.parametrize("case", ["equal", "last", "plateau", "extremes"])
+@pytest.mark.parametrize("cost", ["sad", "census"])
+def test_disparity_kernel_ties_and_domain_edges(cuda_device, cost, case, d):
+    """K7 against its plain version where the argmin is decided by ties
+    or sits at an end, and at the edges of its input domain: equal images
+    (an all-zero cost at d = 0 for the left view), a texture whose only
+    minimum is at D - 1, two-level images (plateaus of equal minima, the
+    first must win), and inputs of only 0 and the largest value (255 for
+    SAD, a census code with all 24 bits set)."""
+    params = ModernParams(num_disparities=d, window=9, cost=cost)
+    top = (1 << 24) - 1 if cost == "census" else 255
+    rng = np.random.default_rng(31)
+    shape = (2, 40, 300)
+    if case == "equal":
+        ref = rng.integers(0, top + 1, shape)
+        other = ref.copy()
+    elif case == "last":
+        ref = rng.integers(0, top + 1, shape)
+        other = np.roll(ref, -(d - 1), axis=2)  # ref(x) = other(x - (D - 1))
+    elif case == "plateau":
+        ref, other = (rng.integers(0, 2, shape) * top for _ in range(2))
+        ref[:, :, ::7] = other[:, :, ::7] = 0
+    else:
+        ref, other = (rng.choice([0, top], shape) for _ in range(2))
+    assert_k7_matches_plain(ref, other, params, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [256, -1])
+def test_box_route_refuses_pixels_k7_cannot_match(cuda_device, bad):
+    """The box route with SAD raises on an int32 plane holding a value
+    outside 0..255 (K7 stages SAD inputs as bytes), before any launch; the
+    same plane within range runs K7 and equals the plain route."""
+    rng = np.random.default_rng(41)
+    left, right = (torch.from_numpy(rng.integers(0, 256, (2, 24, 70), dtype=np.int32))
+                   .to(cuda_device) for _ in range(2))
+    pipe = modern.ModernPipeline(ModernParams(num_disparities=16))
+    bad_left = left.clone()
+    bad_left[1, 5, 9] = bad
+    before = fused_modern.disparity.launches
+    with pytest.raises(ValueError, match="0..255"):
+        pipe(bad_left, right)
+    assert fused_modern.disparity.launches == before
+    got = pipe(left, right)
+    assert fused_modern.disparity.launches == before + 2
+    want = modern.modern_forward_reference(left, right, pipe.params)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ uniqueness).
     python3 tools/profile_torch_pipeline.py --pipeline sgm --mesh 1x4   # sharded tier
     python3 tools/profile_torch_pipeline.py --k1-against DIR  # K1 against another K1
     python3 tools/profile_torch_pipeline.py --k4-against DIR [DIR ...]  # K4 against others
+    python3 tools/profile_torch_pipeline.py --k7-against DIR [DIR ...]  # K7 against others
 
 Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
@@ -79,6 +80,24 @@ stores, cp.async copies (``LDGSTS``), shared loads, ``REDUX``, ``SHFL``
 and all instructions of the bench instance's SASS (each loop's in
 address order), and every instance's registers and local memory
 (``cuobjdump -res-usage``).
+
+With ``--k7-against DIR [DIR ...]`` (each ``DIR`` holds another
+``disparity.cu``: the parent's, or a trial source) K7 against those
+versions in one process, at each instance of
+``stereomatching_tpu_torch.utils.bench.K7_SWEEP`` (8 random 1024x1024
+pairs; SAD windows 1, 5, 9, 15, 31 and 101 at D=64, window 9 at D=128
+and 256; census codes of the 5x5 transform at 14 windows and D, 6 of
+them on the strips, 8 on the tiles): every
+library's disparity, subpixel and cost planes compared bitwise with this
+one's for both reference views, then the left view timed in turns (the
+others, this, then the same in reverse; CUDA events over 10 launches
+after a warmup, 3 from window 50) beside the instance's bound.  For each
+library: the shared-memory loads and stores, barriers, shuffles,
+``REDUX`` and all instructions of the SAD kernels' SASS (in total and in
+each loop), and every kernel's registers and local memory.  A trial
+source with ``MIN_CENSUS_STRIP_WARPS = 1`` takes the census strips
+wherever they fit, so beside it the census instances show where the
+route rule's choice wins.
 
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
@@ -567,6 +586,26 @@ def print_k4_build(label: str, library) -> None:
         for m, r in resource_usage(library).items()), flush=True)
 
 
+def build_libraries(name: str, src_dirs: list[Path], tmp: str) -> dict:
+    """This checkout's ``csrc/<name>.cu`` and each ``DIR/<name>.cu`` of
+    ``src_dirs`` built with the port's nvcc flags (the others into
+    ``tmp``), one nvcc each, all started together -> {label: library},
+    "this" first, then each directory's name."""
+    from stereomatching_tpu_torch.utils.build import NVCC_FLAGS, build, find_nvcc
+
+    t0 = time.perf_counter()
+    procs = [(d.name, Path(tmp) / f"{name}_{d.name}.so", subprocess.Popen(
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(Path(tmp) / f"{name}_{d.name}.so"),
+         str(d / f"{name}.cu")])) for d in src_dirs]
+    libs = {"this": build(name)}
+    for label, so, proc in procs:
+        if proc.wait() != 0:
+            sys.exit(f"nvcc failed for {label}")
+        libs[label] = so
+    print(f"[build] {', '.join(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return libs
+
+
 def main_k4_against(src_dirs: list[Path]) -> None:
     """K4 against other ``sgm_directional.cu`` sources in one process:
     outputs compared bitwise, then each pass, the 4- and 8-path sums and a
@@ -578,21 +617,12 @@ def main_k4_against(src_dirs: list[Path]) -> None:
     import torch
 
     from stereomatching_tpu_torch.ops import costvolume, fused_sgm, sgm
-    from stereomatching_tpu_torch.utils.build import NVCC_FLAGS, _target, build, find_nvcc
+    from stereomatching_tpu_torch.utils.build import _target
 
     smi = card()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = [(d.name, Path(tmp) / f"k4_{d.name}.so", subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(Path(tmp) / f"k4_{d.name}.so"),
-             str(d / "sgm_directional.cu")])) for d in src_dirs]
-        libs = {"this": build("sgm_directional")}
-        for label, so, proc in procs:
-            if proc.wait() != 0:
-                sys.exit(f"nvcc failed for {label}")
-            libs[label] = so
-        print(f"[build] {', '.join(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+        libs = build_libraries("sgm_directional", src_dirs, tmp)
         for label, so in libs.items():
             print_k4_build(label, so)
         fns = {label: k4_entry(so) for label, so in libs.items()}
@@ -718,6 +748,92 @@ def main_k4_against(src_dirs: list[Path]) -> None:
     print(f"[k4 against] this library: {_target('sgm_directional').name}; card {smi}")
 
 
+K7_OPS = ("LDS", "STS", "BAR", "SHFL", "REDUX", "ALL")
+
+
+def main_k7_against(src_dirs: list[Path]) -> None:
+    """K7 against other ``disparity.cu`` sources in one process: at each
+    instance of ``K7_SWEEP`` every library's three planes compared bitwise
+    with this one's for both reference views, then the left view timed in
+    turns (the others, this, then the same in reverse) beside the bound;
+    then each library's SASS counts of the SAD kernels at window 9, D=64,
+    and every kernel's registers and local memory."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import ModernParams
+    from stereomatching_tpu_torch.ops import costvolume, fused_modern
+    from stereomatching_tpu_torch.utils.bench import K7_BENCH_KERNELS, K7_SWEEP, k7_bound_ms
+    from stereomatching_tpu_torch.utils.build import _target, resource_usage, sass_counts
+
+    smi = card()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_libraries("disparity", src_dirs, tmp)
+        for label, so in libs.items():
+            for name, c in sass_counts(so, K7_OPS).items():
+                if K7_BENCH_KERNELS.search(name):
+                    print(f"[sass {label}] {name}: total {c['total']}")
+                    for start, end, counts in c["loops"]:
+                        print(f"[sass {label}]   loop {start:#06x}-{end:#06x}: {counts}")
+            print(f"[regs {label}] " + "; ".join(
+                f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
+                for m, r in resource_usage(so).items()), flush=True)
+        fns = {}
+        for label, so in libs.items():
+            fn = ctypes.CDLL(str(so)).disparity
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[label] = fn
+        others = [k for k in fns if k != "this"]
+        order = [*others, "this"]
+        order = order + order[::-1]
+
+        rng = np.random.default_rng(SEED)
+        dev = torch.device("cuda", 0)
+        pix = [torch.from_numpy(rng.integers(0, 256, (8, SIZE, SIZE), dtype=np.uint8)).to(dev)
+               .to(torch.int32) for _ in range(2)]
+        codes = [costvolume.census_transform(x).contiguous() for x in pix]
+        npix = pix[0].numel()
+        outs = [torch.empty_like(pix[0], dtype=dt) for dt in (torch.int32, torch.float32, torch.int32)]
+
+        def call(fn, inputs, d, window, census, right):
+            a, b = inputs[::-1] if right else inputs
+            err = fn(a.data_ptr(), b.data_ptr(), *[o.data_ptr() for o in outs], 8, SIZE, SIZE, d,
+                     window // 2, census, right, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"K7 launch failed: CUDA error {err}")
+
+        for cost, window, d in K7_SWEEP:
+            census = int(cost == "census")
+            inputs = codes if census else pix
+            for right in (0, 1):
+                call(fns["this"], inputs, d, window, census, right)
+                ref = [o.clone() for o in outs]
+                for label in others:
+                    call(fns[label], inputs, d, window, census, right)
+                    if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                               for x, y in zip(outs, ref)):
+                        sys.exit(f"K7 {label} differs from this at {cost} window {window} D {d} "
+                                 f"right {right}")
+                del ref
+            iters = 10 if window < 50 else 3
+            times = []
+            for label in order:
+                fn = fns[label]
+                call(fn, inputs, d, window, census, 0)
+                times.append((label, event_ms(lambda: call(fn, inputs, d, window, census, 0),
+                                              iters)))
+            route = fused_modern.route(ModernParams(num_disparities=d, window=window, cost=cost))
+            print(f"[k7 instance] {cost} window {window} D {d}, 8x{SIZE}x{SIZE}, both views equal; "
+                  f"this: {route}; bound {k7_bound_ms(cost, npix, d)[0]:.4f} ms; ms per view "
+                  + ", ".join(f"{label} {ms:.4f}" for label, ms in times), flush=True)
+    print(f"[k7 against] this library: {_target('disparity').name}; card {smi}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pipeline", choices=("classic", "reference", *MODERN),
@@ -728,6 +844,8 @@ def main() -> None:
                         help="time K1 against the match_score_edges.cu in DIR")
     parser.add_argument("--k4-against", metavar="DIR", type=Path, nargs="+",
                         help="time K4 against the sgm_directional.cu in each DIR")
+    parser.add_argument("--k7-against", metavar="DIR", type=Path, nargs="+",
+                        help="time K7 against the disparity.cu in each DIR")
     args = parser.parse_args()
     import torch
 
@@ -738,6 +856,8 @@ def main() -> None:
         main_k1_against(args.k1_against.resolve())
     elif args.k4_against:
         main_k4_against([d.resolve() for d in args.k4_against])
+    elif args.k7_against:
+        main_k7_against([d.resolve() for d in args.k7_against])
     elif args.mesh:
         data, rows = (int(x) for x in args.mesh.split("x"))
         main_sharded(args.pipeline, data, rows)
