@@ -24,9 +24,10 @@ the routes chosen before launch for configs past a kernel's limits
 (square width 301, D 320), equal to the CPU route; K4 pass by pass
 (each direction, walk and write mode at the bench shape, with its bytes
 and their floor at 3.35 TB/s, and the byte floor of the 4- and 8-path
-sums: a ``{"k4_passes": ...}`` line); K1's
-shared-memory instruction counts and K4's global loads, stores, REDUX,
-SHFL and instructions per loop in SASS (``k1_sass``, ``k4_sass`` lines);
+sums: a ``{"k4_passes": ...}`` line); the shared-memory instruction
+counts of K1's and of K8's and K9's kernels, which run one shift loop,
+and K4's global loads, stores, REDUX, SHFL and instructions per loop in
+SASS (``k1_sass``, ``k8_sass``, ``k4_sass`` lines);
 K7's shared-memory loads and stores, barriers, shuffles and instructions
 per loop in the SASS of its SAD kernels at D=64, with every K7 kernel's
 registers (``k7_sass``), and K7's time over its sweep of windows, D and
@@ -198,7 +199,7 @@ def main() -> None:
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
     from stereomatching_tpu_torch.utils.bench import (
         FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S, K7_BENCH_KERNELS, K7_SWEEP, bound,
-        k7_bound_ms)
+        k1_bound_ms, k7_bound_ms, k8_bound_ms, k9_bound_ms)
     from stereomatching_tpu_torch.utils.build import build_all
 
     dev = torch.device("cuda", 0)
@@ -330,10 +331,9 @@ def main() -> None:
           f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms "
           f"(per batch of {BATCH})", flush=True)
     npix = BATCH * SIZE * SIZE
-    # K1: two f32 planes in, four int32 planes out; ~10 int ops per pixel
-    # and shift (match, separable box sums, argmax).  K2: one int32 plane
-    # in and out; ~6 int ops per pixel and step.
-    k1_bound = bound(24 * npix, 10 * npix * SHIFTS, INT32_OPS_PER_S)
+    # K1: ``k1_bound_ms`` (the shift loop's count, as K8).  K2: one int32
+    # plane in and out; ~6 int ops per pixel and step.
+    k1_bound = k1_bound_ms(npix, SHIFTS)
     k2_bound = bound(8 * npix, 6 * npix * (params.times - 1), INT32_OPS_PER_S)
     del kernels, lt, rt, win, arts, plain, matcher
 
@@ -676,10 +676,30 @@ def main() -> None:
         density = el.float().mean(dim=(1, 2))
         notes.append(f"{mode.value}: edge density {float(density[:6].mean()):.2%} on the "
                      f"textures, {float(density[6:].mean()):.2%} on the random pairs")
+    # sw 255 with D 300 (the wide window's row-sum word loop, and a right
+    # bit row of 12 words) on a small random pair's reference-rule edge maps (two 128-row tiles, three
+    # 128-column ones), both modes, with and without the sub-pixel plane.
+    srng = np.random.default_rng(SEED + 15)
+    small = [torch.from_numpy(u8_to_brightness(srng.integers(0, 256, (2, 200, 333),
+                                                             dtype=np.uint8))).to(dev)
+             for _ in range(2)]
+    for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP):
+        p = StereoParams(num_shifts=300, square_width=255, mode=mode)
+        el, er = (find_edges(x, p.threshold, mode, "reference") for x in small)
+        for sub in (False, True):
+            got = fused.match_and_score(el, er, p, sub)
+            ref = (argmax.match_and_score_subpixel if sub else argmax.match_and_score)(el, er, p)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("best", "winner", "subpixel"), got, ref):
+                err = max_abs_diff(a, b)
+                k8_err = max(k8_err, err)
+                check(same(a, b), f"K8 sw 255 D 300 {mode.value} {name} (subpixel={sub}) "
+                      f"differs from plain (max |d| {err})")
     del el, er, got, ref
     print(f"[15 K8] {BATCH}x{SIZE}x{SIZE} reference-rule edge maps of the slice's pairs, "
-          f"D={SHIFTS}, sw=21: best, winner and the sub-pixel plane == plain bitwise "
-          f"({'; '.join(notes)}; max |d| {k8_err})", flush=True)
+          f"D={SHIFTS}, sw=21, and 2x200x333 random pairs' at D=300, sw=255: best, winner and "
+          f"the sub-pixel plane == plain bitwise ({'; '.join(notes)}; max |d| {k8_err})",
+          flush=True)
 
     # Phase 16: K1's sub-pixel plane against its plain version, both modes,
     # on the same pairs.
@@ -827,12 +847,11 @@ def main() -> None:
     check(s2_counts == want, f"scales=2 SGM kernel launches {s2_counts}, want {want}")
     s2_ms = cuda_time_ms(lambda: s2pipe(*pix), 3) / BATCH
     s2_plain_ms = cuda_time_ms(lambda: modern.modern_forward_reference(*pix, s2params), 1) / BATCH
-    # K8: two int32 edge maps in, two int32 planes out (16 B per pixel);
-    # ~10 int ops per pixel and shift, as K1.  With the sub-pixel plane
-    # 4 B more out and ~16 ops (the four neighbour carries).
-    k8_bound = bound(16 * npix, 10 * npix * SHIFTS, INT32_OPS_PER_S)
-    k8s_bound = bound(20 * npix, 16 * npix * SHIFTS, INT32_OPS_PER_S)
-    k1s_bound = bound(28 * npix, 16 * npix * SHIFTS, INT32_OPS_PER_S)
+    # K8 and K1 with the sub-pixel plane: ``k8_bound_ms``, ``k1_bound_ms``
+    # (the shift loop's count, with the sub-pixel carries where taken).
+    k8_bound = k8_bound_ms(npix, SHIFTS)
+    k8s_bound = k8_bound_ms(npix, SHIFTS, subpixel=True)
+    k1s_bound = k1_bound_ms(npix, SHIFTS, subpixel=True)
     print(f"[19 reference-rule and scales=2 times] {smi}: match_and_score {k8_ms:.4f} ms vs "
           f"plain {k8_plain_ms:.4f} ms (bound {k8_bound[0]:.4f}), with sub-pixel "
           f"{k8s_ms:.4f} ms (bound {k8s_bound[0]:.4f}); match_score_edges {k1_same_ms:.4f} ms, "
@@ -871,25 +890,40 @@ def main() -> None:
     # and two random pairs), then a rows 2 x cols 2 mesh (pre-extended
     # blocks).  Bitwise.
     k9_err, notes = 0, []
-    k9_cases = [((2, 4, None), mode, rule) for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP)
+    k9_cases = [((2, 4, None), mode, rule, 21, SHIFTS)
+                for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP)
                 for rule in ("exact", "reference")]
-    k9_cases += [((2, 2, 2), BoundaryMode.GHOST, "exact"), ((2, 2, 2), BoundaryMode.WRAP, "exact")]
-    for shape, mode, rule in k9_cases:
-        p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule=rule)
-        kw = k9_inputs(card_mesh(*shape), lt, rt, p)
+    k9_cases += [((2, 2, 2), mode, "exact", 21, SHIFTS)
+                 for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP)]
+    # sw 255 with D 300 (halos of 127 rows, a right bit row of 12 words) on
+    # the data 2 x rows 2 blocks of a small pair (shards of 160 rows), and
+    # on the data 2 x rows 2 x cols 2 blocks of a wider one, where the halo
+    # rows meet the pre-extended blocks' column padding (a column shard
+    # must hold the 127 + 300 columns of the right map's halo: 428 wide).
+    k9_cases += [(shape, mode, "reference", 255, 300)
+                 for shape in ((2, 2, None), (2, 2, 2))
+                 for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP)]
+    small, wide = ([torch.from_numpy(u8_to_brightness(srng.integers(0, 256, (2, 320, w),
+                                                                   dtype=np.uint8))).to(dev)
+                    for _ in range(2)] for w in (333, 856))
+    for shape, mode, rule, sw, d in k9_cases:
+        p = StereoParams(num_shifts=d, square_width=sw, mode=mode, edge_rule=rule)
+        pair = (lt, rt) if sw == 21 else wide if shape[2] else small
+        kw = k9_inputs(card_mesh(*shape), *pair, p)
         got = fused.match_and_score_prehalo(params=p, **kw)
         ref = fused.match_and_score_prehalo_reference(params=p, **kw)
         torch.cuda.synchronize()
         for name, a, b in zip(("best", "winner"), got, ref):
             err = max_abs_diff(a, b)
             k9_err = max(k9_err, err)
-            check(same(a, b), f"K9 {shape} {mode.value} {rule} {name} differs from plain "
-                  f"(max |d| {err})")
-        notes.append(f"{'x'.join(str(x) for x in shape if x)} {mode.value} {rule}: "
-                     f"{tuple(kw['l_blk'].shape)}")
-    print(f"[20 K9] shard blocks of the classic slice's {BATCH}x{SIZE}x{SIZE} pairs, D={SHIFTS}, "
-          f"sw=21: best and winner == plain bitwise ({'; '.join(notes)}; max |d| {k9_err})",
-          flush=True)
+            check(same(a, b), f"K9 {shape} {mode.value} {rule} sw {sw} D {d} {name} differs "
+                  f"from plain (max |d| {err})")
+        notes.append(f"{'x'.join(str(x) for x in shape if x)} {mode.value} {rule} sw {sw} "
+                     f"D {d}: {tuple(kw['l_blk'].shape)}")
+    del small, wide
+    print(f"[20 K9] shard blocks of the classic slice's {BATCH}x{SIZE}x{SIZE} pairs (D={SHIFTS}, "
+          f"sw=21) and of 2x320x333 and 2x320x856 random pairs (D=300, sw=255): best and "
+          f"winner == plain bitwise ({'; '.join(notes)}; max |d| {k9_err})", flush=True)
 
     # Phase 21: K4's seeded chain at rows 4 (4 x 256-row shards) on a
     # census int8 volume of 4 random 1024x1024 pairs, D=64, into int16:
@@ -1065,14 +1099,10 @@ def main() -> None:
     k9_plain_ms = cuda_time_ms(lambda: fused.match_and_score_prehalo_reference(params=xp, **kw), 1)
     blk_px = kw["l_blk"].shape[0] * (kw["l_blk"].shape[1] - 2 * kw["halo"]) * SIZE
     halo_px = kw["l_blk"].shape[0] * 2 * xp.half * SIZE
-    # K9: both halo blocks in (4 B per cell), best and winner out (8 B per
-    # pixel).  Per shift, ~10 int ops per kept pixel as K8 (match, column
-    # and row box sums, score, argmax); the 2 x half halo rows of a shard
-    # that its windows reach need only the match and the running column
-    # sum: a compare and an add as the row enters the sum, a compare and
-    # a subtract as it leaves, 4 ops per cell.
-    k9_bound = bound(4 * (kw["l_blk"].numel() + kw["r_blk"].numel()) + 8 * blk_px,
-                     (10 * blk_px + 4 * halo_px) * SHIFTS, INT32_OPS_PER_S)
+    # K9: ``k9_bound_ms`` (both halo blocks in, best and winner out; the
+    # shift loop's count per kept pixel, the match and row sum per cell of
+    # the halo rows the windows reach).
+    k9_bound = k9_bound_ms(kw["l_blk"].numel() + kw["r_blk"].numel(), blk_px, halo_px, SHIFTS)
     del kw
     codes = [costvolume.census_transform(x).contiguous() for x in pix]
     vol = fused_sgm.sgm_volume(*codes, SHIFTS, "census", torch.int8)
@@ -1199,8 +1229,9 @@ def main() -> None:
                       for p in k4_passes), flush=True)
     print(json.dumps({"k4_passes": k4_passes, **k4_floors}), flush=True)
 
-    # K1's shift loop in SASS: shared-memory loads, stores and barriers in
-    # each kernel instance, in total and per loop (cuobjdump -sass).  K4's
+    # The bit-row shift loop in SASS (K1's instances, then K8's and K9's):
+    # shared-memory loads, stores and barriers in each kernel instance, in
+    # total and per loop (cuobjdump -sass).  K4's
     # step loop: global loads and stores, REDUX, SHFL and all instructions
     # in the bench instances (int8 costs, int16 aggregate, 2 disparities per
     # lane), each loop's in address order, and their registers.
@@ -1209,10 +1240,11 @@ def main() -> None:
     def kernel_name(name):
         return re.search(r"\w+_kernel(<[^>]*>)?", name).group(0)
 
-    k1_sass = {kernel_name(name): {"total": c["total"], "loops": [
-        {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
-        for name, c in sass_counts(_target("match_score_edges")).items()}
-    print(json.dumps({"k1_sass": k1_sass}), flush=True)
+    # K8's and K9's instances run K1's loop on staged edge maps.
+    for key, target in (("k1_sass", "match_score_edges"), ("k8_sass", "match_and_score")):
+        print(json.dumps({key: {kernel_name(name): {"total": c["total"], "loops": [
+            {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
+            for name, c in sass_counts(_target(target)).items()}}), flush=True)
     k4_lib = _target("sgm_directional")
     k4_regs = [r["REG"] for m, r in resource_usage(k4_lib).items() if "IasLi2E" in m]
     k4_sass = {kernel_name(name): {"total": c["total"], "loops": [

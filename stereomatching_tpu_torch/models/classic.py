@@ -74,7 +74,7 @@ def classic_kernels_supported(params: StereoParams, sharded: bool = False):
     stage and the reason.  The diffusion (K2) takes every config.
     Decided from the config alone, before any launch."""
     stage = _match_stage(params, sharded)
-    why = kernel_refusal(stage, params)
+    why = kernel_refusal(params)
     return (True, "") if not why else (False, f"{stage}: {why}")
 
 

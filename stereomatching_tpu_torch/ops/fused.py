@@ -36,50 +36,48 @@ from stereomatching_tpu_torch.ops.edges import find_edges
 
 MAX_SMEM_BYTES = 232448  # the sm_90 per-block opt-in limit
 MAX_SQUARE_WIDTH = 255  # the JAX kernels' limit (fused.py:722)
+MAX_SHIFTS = 65535  # the kernels pack best << 16 | winner in one word
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry of each source: (argtypes); each returns a CUDA error.
+# C entries: (argtypes); each returns an int, a CUDA error (the shared
+# memory entry: bytes per block, held against the mirror below by the CUDA
+# tests).
 _SIGNATURES = {
     "match_score_edges": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
+    "match_score_edges_smem_bytes": [_I, _I],
     "match_and_score": [_P] * 5 + [_I] * 6 + [_P],
     "match_and_score_prehalo": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _I, _P],
 }
+# The C entries of each library.
+_ENTRIES = {"match_score_edges": ("match_score_edges", "match_score_edges_smem_bytes"),
+            "match_and_score": ("match_and_score", "match_and_score_prehalo")}
 
 
 def match_score_edges_smem_bytes(half: int, num_shifts: int) -> int:
-    """Shared memory per block of K1: a mirror of the ``layout`` arithmetic
-    of ``csrc/match_score_edges.cu`` (its taller, 128-row tile), so that a
-    route can be chosen from the config alone.  Each of the tile's 128 +
-    2*half rows holds a left and a validity row of lst = (128 + 2*half)/32
-    + 1 words, two match-plane rows of lst word pairs, and a right row
-    (D - 1)/32 + 1 words longer than lst."""
+    """Shared memory per block of K1, K8 and K9: a mirror of the ``layout``
+    arithmetic of ``csrc/match_loop.cuh`` (the taller, 128-row tile), so
+    that a route can be chosen from the config alone.  Each of the tile's
+    128 + 2*half rows holds a left and a validity row of lst = (128 +
+    2*half)/32 + 1 words, two match-plane rows of lst word pairs, and a
+    right row (D - 1)/32 + 1 words longer than lst."""
     rows = 128 + 2 * half
     lst = (128 + 2 * half + 31) // 32 + 1
     rst = lst + (num_shifts - 1) // 32 + 1
     return 4 * rows * (6 * lst + rst)
 
 
-def match_and_score_smem_bytes(half: int, num_shifts: int) -> int:
-    """Shared memory per block of K8 and K9: a mirror of ``edge_tiles`` in
-    ``csrc/match_loop.cuh`` (a 32x32 output tile; byte edge tiles of
-    32 + 2*half rows, the right one D - 1 columns wider, and 32 rows of
-    int32 column sums with an odd stride)."""
-    ew_l = 32 + 2 * half
-    return 32 * (ew_l | 1) * 4 + (32 + 2 * half) * (2 * ew_l + num_shifts - 1)
-
-
-def kernel_refusal(kernel: str, params: StereoParams) -> str:
-    """Why the CUDA kernel ``kernel`` ("match_score_edges" (K1),
-    "match_and_score" (K8) or "match_and_score_prehalo" (K9)) does not
-    take ``params``, or "" when it does: square_width above 255, or more
-    shared memory per block than the card's 232448 bytes (which also
-    keeps K1's shift count below the 65536 its packed winner holds).
-    Pure Python: no library is loaded."""
+def kernel_refusal(params: StereoParams) -> str:
+    """Why the classic matching kernels (K1, K8 and K9, which share one
+    layout and so one set of limits) do not take ``params``, or "" when
+    they do: square_width above 255, more than 65535 shifts (the packed
+    winner), or more shared memory per block than the card's 232448
+    bytes.  Pure Python: no library is loaded."""
     sw, d = params.square_width, params.num_shifts
     if sw > MAX_SQUARE_WIDTH:
         return f"square_width {sw} > {MAX_SQUARE_WIDTH}"
-    smem = (match_score_edges_smem_bytes if kernel == "match_score_edges"
-            else match_and_score_smem_bytes)(params.half, d)
+    if d > MAX_SHIFTS:
+        return f"num_shifts {d} > {MAX_SHIFTS}"
+    smem = match_score_edges_smem_bytes(params.half, d)
     if smem > MAX_SMEM_BYTES:
         return (f"square_width {sw} with {d} shifts needs {smem} B of shared memory "
                 f"per block (limit {MAX_SMEM_BYTES})")
@@ -119,13 +117,9 @@ def _lib(name: str = "match_score_edges") -> ctypes.CDLL:
     from stereomatching_tpu_torch.utils.build import load
 
     lib = load(name)
-    entries = [name] + (["match_and_score_prehalo"] if name == "match_and_score" else [])
-    for entry in entries:
+    for entry in _ENTRIES[name]:
         getattr(lib, entry).argtypes = _SIGNATURES[entry]
         getattr(lib, entry).restype = ctypes.c_int
-    smem = getattr(lib, f"{name}_smem_bytes")
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem.restype = ctypes.c_int
     return lib
 
 
@@ -153,9 +147,9 @@ def _launch(name: str, left, right, dtype, params: StereoParams, n_int: int,
     for t in (left, right):
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous {dtype} inputs, got {t.dtype}")
-    if params.square_width > MAX_SQUARE_WIDTH:
-        raise ValueError(
-            f"{name} takes square_width <= {MAX_SQUARE_WIDTH}, got {params.square_width}")
+    why = kernel_refusal(params)
+    if why:
+        raise ValueError(f"{name}: {why}")
     squeeze = left.ndim == 2
     if squeeze:
         left, right = left[None], right[None]
@@ -163,13 +157,6 @@ def _launch(name: str, left, right, dtype, params: StereoParams, n_int: int,
     if bsz > 65535:
         raise ValueError(f"{name} takes at most 65535 images, got {bsz}")
     lib = _lib(name)
-    smem = getattr(lib, f"{name}_smem_bytes")(params.half, params.num_shifts)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"square_width {params.square_width} with {params.num_shifts} "
-            f"shifts needs {smem} B of shared memory per block "
-            f"(limit {MAX_SMEM_BYTES})"
-        )
     outs = [torch.empty((bsz, h, w), dtype=torch.int32, device=left.device)
             for _ in range(n_int)]
     sub = (torch.empty((bsz, h, w), dtype=torch.float32, device=left.device)
@@ -224,7 +211,7 @@ def match_and_score(
     and with ``subpixel`` the float32 sub-pixel plane; both boundary
     modes.  CPU tensors run the plain version (``ops.argmax.
     match_and_score`` / ``match_and_score_subpixel``) on the maps as 0/1,
-    CUDA tensors K8, which stages them as 0/1 bytes."""
+    CUDA tensors K8, which stages them as bit rows."""
     if _on_cpu(edges_l, edges_r):
         return match_and_score_reference(edges_l, edges_r, params, subpixel)
     outs = _launch("match_and_score", edges_l, edges_r, torch.int32, params, 2, subpixel)
@@ -322,17 +309,13 @@ def match_and_score_prehalo(
     for t in (l_blk, r_blk):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"match_and_score_prehalo takes contiguous int32 blocks, got {t.dtype}")
-    if params.square_width > MAX_SQUARE_WIDTH:
-        raise ValueError(f"match_and_score_prehalo takes square_width <= {MAX_SQUARE_WIDTH}")
+    why = kernel_refusal(params)
+    if why:
+        raise ValueError(f"match_and_score_prehalo: {why}")
     b, rows_in, w = l_blk.shape
     if b > 65535:
         raise ValueError(f"match_and_score_prehalo takes at most 65535 images, got {b}")
     lib = _lib("match_and_score")
-    smem = lib.match_and_score_smem_bytes(params.half, params.num_shifts)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"square_width {params.square_width} with {params.num_shifts} shifts needs "
-            f"{smem} B of shared memory per block (limit {MAX_SMEM_BYTES})")
     dev = l_blk.device
     row0 = row0.to(dev, torch.int32).contiguous()
     col0 = (torch.zeros_like(row0) if col0 is None else col0.to(dev, torch.int32).contiguous())

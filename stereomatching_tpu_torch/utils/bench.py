@@ -59,3 +59,54 @@ def k7_bound_ms(cost: str, npix: int, d: int) -> tuple[float, str]:
         ops_ms = max(ops_ms, pxd / POPC_PER_S * 1e3)
     bytes_ms = 20 * npix / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+# The int32 instructions per pixel and shift that the classic matchers'
+# shift loop (K1, K8, K9; ``csrc/match_loop.cuh``) needs, one per value
+# and step as K7's: the column sum's update and the row sum's (one 3-input
+# add each: sum + entering - leaving), the score (the box sum where the
+# pixel matches, else 0: one select), the key ``score << 16 | s + 1`` (one
+# shift-add) and the running maximum; and the match itself, 32 cells per
+# funnel shift and 3-input logic op (``~(L ^ R) & V``).  The sub-pixel
+# plane's carries add 5: the compare that takes a new maximum, the select
+# that hands the previous step's selection its right neighbour, the
+# selects of the left neighbour and of the reset right one, and the
+# previous score carried.  Each strip's first window sum is not counted.
+LOOP_OPS = 5 + 2 / 32
+SUBPIXEL_OPS = 5
+
+
+def loop_ops(npix: int, d: int, subpixel: bool = False) -> float:
+    """The shift loop's int32 instructions for ``npix`` output pixels at
+    ``d`` shifts (``LOOP_OPS``, + ``SUBPIXEL_OPS`` with the plane)."""
+    return (LOOP_OPS + (SUBPIXEL_OPS if subpixel else 0)) * npix * d
+
+
+def k1_bound_ms(npix: int, d: int, subpixel: bool = False) -> tuple[float, str]:
+    """K1's least time on the card for ``npix`` pixels at ``d`` shifts:
+    two float32 brightness planes in, best, winner and both edge planes
+    out (24 B per pixel; 28 with the float32 sub-pixel plane); the shift
+    loop's ``loop_ops``.  Its exact-rule edge stage (a few tens of ops per
+    pixel and view, with float conversions) is left out, so this is the
+    loop's floor alone.  -> (ms, "operations" or "bytes")."""
+    return bound((28 if subpixel else 24) * npix, loop_ops(npix, d, subpixel), INT32_OPS_PER_S)
+
+
+def k8_bound_ms(npix: int, d: int, subpixel: bool = False) -> tuple[float, str]:
+    """K8's least time on the card for ``npix`` pixels at ``d`` shifts:
+    two int32 edge maps in, best and winner out (16 B per pixel; 20 with
+    the float32 sub-pixel plane); the shift loop's ``loop_ops``.  ->
+    (ms, "operations" or "bytes")."""
+    return bound((20 if subpixel else 16) * npix, loop_ops(npix, d, subpixel), INT32_OPS_PER_S)
+
+
+def k9_bound_ms(in_cells: int, kept_px: int, halo_px: int, d: int) -> tuple[float, str]:
+    """K9's least time on the card for halo blocks of ``in_cells`` int32
+    cells in all (both maps, 4 B each read once), ``kept_px`` output
+    pixels (best and winner, 8 B each) and ``halo_px`` cells of the 2 x
+    half halo rows its windows reach, at ``d`` shifts: per shift
+    ``loop_ops`` per kept pixel, as K8, and per halo cell only its match
+    and its row sum's update, 1 + 2/32 (it enters the column sums through
+    the kept pixels' adds).  -> (ms, "operations" or "bytes")."""
+    return bound(4 * in_cells + 8 * kept_px,
+                 loop_ops(kept_px, d) + (1 + 2 / 32) * halo_px * d, INT32_OPS_PER_S)

@@ -439,10 +439,18 @@ def rand_edges(device, shape, seed):
             for _ in range(2)]
 
 
-# (D, square_width): D 1 to 256 (D > W = 45 from 64 up) at windows 1 and 21,
-# and the 255 window at D <= 64.
+# (D, square_width, shape): D 1 to 256 (D > W = 45 from 64 up) at windows
+# 1 and 21, and the 255 window at D <= 64, on 2 x 37 x 45; then the 255
+# window at D 114, 300 and 1000 (right bit rows of 9 to 38 words)
+# on widths 1, 33, 129 and 200 (one and two 128-column tiles, D > W) and
+# heights around 64 and 128 (the tile heights with and without the
+# sub-pixel plane).
 K8_CASES = [(1, 1), (1, 21), (30, 1), (30, 21), (64, 21), (256, 1), (256, 21), (30, 255),
             (64, 255)]
+K8_CASES = [(d, sw, (2, 37, 45)) for d, sw in K8_CASES] + [
+    (114, 255, (2, 64, 129)), (114, 255, (2, 129, 33)), (300, 255, (2, 65, 200)),
+    (300, 255, (2, 128, 1)), (1000, 255, (2, 63, 33)), (1000, 255, (2, 127, 129)),
+    (300, 21, (2, 130, 200))]
 
 
 @pytest.mark.cuda
@@ -450,9 +458,9 @@ K8_CASES = [(1, 1), (1, 21), (30, 1), (30, 21), (64, 21), (256, 1), (256, 21), (
 @pytest.mark.parametrize("d_sw", K8_CASES)
 @pytest.mark.parametrize("mode", MODES)
 def test_match_and_score_kernel_matches_plain(cuda_device, mode, d_sw, subpixel):
-    d, sw = d_sw
+    d, sw, shape = d_sw
     params = StereoParams(num_shifts=d, square_width=sw, mode=mode)
-    el, er = rand_edges(cuda_device, (2, 37, 45), 31)
+    el, er = rand_edges(cuda_device, shape, 31)
     before = fused.match_and_score.launches
     got = fused.match_and_score(el, er, params, subpixel)
     torch.cuda.synchronize()
@@ -486,7 +494,7 @@ def test_match_and_score_kernel_reads_nonzero_as_edge(cuda_device, mode):
 def test_match_and_score_wrapper_checks_inputs(cuda_device):
     el, er = rand_edges(cuda_device, (2, 37, 45), 32)
     with pytest.raises(ValueError, match="shared memory"):
-        fused.match_and_score(el, er, StereoParams(num_shifts=256, square_width=255))
+        fused.match_and_score(el, er, StereoParams(num_shifts=1953, square_width=255))
     with pytest.raises(ValueError):
         fused.match_and_score(el, er, StereoParams(num_shifts=8, square_width=257))
     with pytest.raises(ValueError):
@@ -499,15 +507,14 @@ def test_match_and_score_wrapper_checks_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_smem_mirrors_match_the_libraries(cuda_device):
-    """The Python mirrors the routes are chosen by give the libraries'
-    own shared-memory figures over a grid of (half, D)."""
-    k1, k8 = fused._lib("match_score_edges"), fused._lib("match_and_score")
+    """The Python mirror the routes are chosen by gives the library's own
+    shared-memory figure (``match_loop::smem_bytes``, the one layout of
+    K1, K8 and K9) over a grid of (half, D)."""
+    k1 = fused._lib("match_score_edges")
     for half in (0, 1, 10, 15, 16, 50, 127, 150):
-        for d in (1, 2, 31, 32, 33, 64, 256, 257, 1000, 4000):
+        for d in (1, 2, 31, 32, 33, 64, 256, 257, 1000, 1952, 1953, 4000):
             assert (fused.match_score_edges_smem_bytes(half, d)
                     == k1.match_score_edges_smem_bytes(half, d)), (half, d)
-            assert (fused.match_and_score_smem_bytes(half, d)
-                    == k8.match_and_score_smem_bytes(half, d)), (half, d)
 
 
 @pytest.mark.cuda
@@ -664,6 +671,13 @@ def _halo_blocks(rng, b, hs, w, halo, wr, density=0.3):
     (BoundaryMode.GHOST, False, 3, 40, 64, 12, 21, 12),
     (BoundaryMode.GHOST, True, 4, 24, 36, 12, 9, 4),
     (BoundaryMode.WRAP, True, 4, 24, 36, 12, 9, 4),
+    # Shards taller than one 128-row tile, one of 3 rows, and sw 255 with
+    # D 300 (halos of 127 rows).
+    (BoundaryMode.GHOST, False, 2, 150, 70, 16, 9, 4),
+    (BoundaryMode.WRAP, False, 2, 140, 45, 20, 21, 10),
+    (BoundaryMode.GHOST, False, 3, 3, 50, 12, 5, 2),
+    (BoundaryMode.GHOST, True, 2, 20, 36, 300, 255, 127),
+    (BoundaryMode.WRAP, False, 2, 20, 40, 300, 255, 127),
 ])
 def test_match_and_score_prehalo_kernel_matches_plain(cuda_device, case):
     mode, pre, b, hs, w, d, sw, halo = case
@@ -754,7 +768,7 @@ def test_diffusion_step_kernels_match_plain(cuda_device, x_off):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("mesh_shape", [(2, 4, None), (1, 2, 2)])
+@pytest.mark.parametrize("mesh_shape", [(2, 4, None), (1, 2, 2), (2, 2, 2)])
 def test_sharded_classic_on_one_card_matches_single_device(cuda_device, mode, mesh_shape):
     from stereomatching_tpu_torch.models.classic import classic_forward_batched
     from stereomatching_tpu_torch.parallel import build_sharded_pipeline, make_mesh
@@ -887,11 +901,11 @@ def test_modern_320_disparities_route_equals_cpu(cuda_device, aggregation):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["box-d320", "classic-sw255-d200"])
+@pytest.mark.parametrize("case", ["box-d320", "classic-sw255-d2000"])
 def test_sharded_plain_stage_route_equals_single_device(cuda_device, case):
     """A config the predicate sends to plain on the sharded tier (rows 2 on
-    one card): K7 past D 256, K9 past its shared memory; equal to the
-    single-device route."""
+    one card): K7 past D 256, K9 past its shared memory (1952 shifts at sw
+    255); equal to the single-device route."""
     from stereomatching_tpu_torch.models.classic import classic_forward_batched
     from stereomatching_tpu_torch.parallel import (
         build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
@@ -903,7 +917,7 @@ def test_sharded_plain_stage_route_equals_single_device(cuda_device, case):
         got = build_sharded_modern_pipeline(params, mesh)(left, right)
         want = modern.modern_forward(left, right, params)
     else:
-        params = StereoParams(num_shifts=200, square_width=255, times=4, lines=4)
+        params = StereoParams(num_shifts=2000, square_width=255, times=4, lines=4)
         left, right = _pair(cuda_device, (1, 320, 320), 44, True)
         before = fused.match_and_score_prehalo.launches
         got = build_sharded_pipeline(params, mesh)(left, right)

@@ -37,21 +37,49 @@ def test_classic_predicate_square_width_limit(rule_sharded):
 
 
 # The largest D whose tile fits the 232448 B of shared memory at
-# square_width 255: K1's bit rows (4 * 382 * (6 * 13 + 13 + (D-1)//32 + 1)
-# bytes), K8's and K9's byte tiles (36736 + 286 * (571 + D) bytes).
-@pytest.mark.parametrize("rule_sharded_dmax", [("exact", False, 1952), ("reference", False, 113),
-                                               ("exact", True, 113)])
+# square_width 255: K1, K8 and K9 share the bit-row layout of
+# csrc/match_loop.cuh (4 * 382 * (6 * 13 + 13 + (D-1)//32 + 1) bytes), so
+# the limit is the same for all three.
+@pytest.mark.parametrize("rule_sharded_dmax", [("exact", False, 1952), ("reference", False, 1952),
+                                               ("exact", True, 1952)])
 def test_classic_predicate_shared_memory_boundary(rule_sharded_dmax):
     rule, sharded, d_max = rule_sharded_dmax
     stage = STAGES[(rule, sharded)]
-    mirror = (fused.match_score_edges_smem_bytes if stage == "match_score_edges"
-              else fused.match_and_score_smem_bytes)
+    mirror = fused.match_score_edges_smem_bytes
     assert mirror(127, d_max) <= fused.MAX_SMEM_BYTES < mirror(127, d_max + 1)
     assert classic.classic_kernels_supported(
         StereoParams(square_width=255, num_shifts=d_max, edge_rule=rule), sharded) == (True, "")
     ok, why = classic.classic_kernels_supported(
         StereoParams(square_width=255, num_shifts=d_max + 1, edge_rule=rule), sharded)
     assert not ok and why.startswith(f"{stage}: square_width 255 with {d_max + 1} shifts needs")
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_classic_predicate_sends_sw255_d200_to_the_kernel(sharded):
+    """sw 255 with D 200 goes to K8 on the reference rule and to K9 on
+    the sharded tier; sw 301 still goes to the plain version."""
+    params = StereoParams(square_width=255, num_shifts=200)
+    assert params.edge_rule == "reference"
+    assert classic.classic_kernels_supported(params, sharded) == (True, "")
+    assert classic.plain_stages(params, sharded) == {}
+    wide = StereoParams(square_width=301, num_shifts=200)
+    stage = STAGES[("reference", sharded)]
+    assert classic.classic_kernels_supported(wide, sharded) == (
+        False, f"{stage}: square_width 301 > 255")
+    assert classic.plain_stages(wide, sharded) == {stage: f"{stage}: square_width 301 > 255"}
+    if not sharded:
+        assert classic._match_fn(params) is fused.match_and_score
+        assert classic._match_fn(wide) is fused.match_and_score_reference
+
+
+def test_kernel_refusal_packed_winner_limit():
+    """More than 65535 shifts cannot be packed beside the score; at sw 1
+    the shared memory refuses first, at 13409 shifts."""
+    assert fused.kernel_refusal(StereoParams(square_width=1, num_shifts=13408)) == ""
+    assert fused.kernel_refusal(StereoParams(square_width=1, num_shifts=13409)).startswith(
+        "square_width 1 with 13409 shifts needs")
+    assert fused.kernel_refusal(StereoParams(square_width=1, num_shifts=65536)) == (
+        "num_shifts 65536 > 65535")
 
 
 def test_modern_predicate_limits():
@@ -93,10 +121,10 @@ def test_routes_select_plain_stages():
     assert Matcher(exact, device="cpu").plain_stages == {}
     assert Matcher(wide, device="cpu").plain_stages == {
         "match_and_score": "match_and_score: square_width 301 > 255"}
-    assert classic.plain_stages(StereoParams(square_width=255, num_shifts=200),
+    assert classic.plain_stages(StereoParams(square_width=255, num_shifts=2000),
                                 sharded=True) == {
-        "match_and_score_prehalo": "match_and_score_prehalo: square_width 255 with 200 "
-                                   "shifts needs 257242 B of shared memory per block "
+        "match_and_score_prehalo": "match_and_score_prehalo: square_width 255 with 2000 "
+                                   "shifts needs 235312 B of shared memory per block "
                                    "(limit 232448)"}
 
 

@@ -14,6 +14,7 @@ uniqueness).
     python3 tools/profile_torch_pipeline.py --pipeline sgm8   # 8-direction stack
     python3 tools/profile_torch_pipeline.py --pipeline sgm --mesh 1x4   # sharded tier
     python3 tools/profile_torch_pipeline.py --k1-against DIR  # K1 against another K1
+    python3 tools/profile_torch_pipeline.py --k8-against DIR  # K8 and K9 against others
     python3 tools/profile_torch_pipeline.py --k4-against DIR [DIR ...]  # K4 against others
     python3 tools/profile_torch_pipeline.py --k7-against DIR [DIR ...]  # K7 against others
 
@@ -60,6 +61,19 @@ outputs compared bitwise, device ms per batch of 8 (ghost, exact rule,
 in turns other, this, this, other (CUDA events over 10 launches after a
 warmup), and the shared-memory loads, stores and barriers in each
 kernel's SASS (``cuobjdump -sass``): in total and in each loop.
+
+With ``--k8-against DIR`` (``DIR`` holds another ``match_and_score.cu``
+and the ``match_loop.cuh`` it includes, e.g. the parent commit's,
+unpacked by ``git show``) K8 and K9 against that version in one process:
+both built by ``nvcc`` with the port's flags, then at the bench instance
+(8 random 1024x1024 pairs, D=64, sw 21) K8 on their reference-rule edge
+maps (ghost and wrap, with and without the sub-pixel plane) and K9 on
+their data 2 x rows 4 halo blocks (exact rule, ghost and wrap), each
+instance's planes compared bitwise between the libraries and timed in
+turns other, this, this, other (CUDA events over 10 launches after a
+warmup) beside its bound (``utils/bench.py``); and the shared-memory
+loads, stores, barriers and all instructions of each kernel's SASS, in
+total and in each loop, and their registers.
 
 With ``--k4-against DIR [DIR ...]`` (each ``DIR`` holds another
 ``sgm_directional.cu``: the parent's, or a trial source) K4 against those
@@ -466,13 +480,31 @@ def main_sharded(route: str, data: int, rows: int) -> None:
     profile_kernels(three, "sharded batch 8 x3")
 
 
-def print_sass(label: str, library) -> None:
+def print_sass(label: str, library, ops=("LDS", "STS", "BAR"), kernels=None) -> None:
+    """The counts of ``ops`` in each kernel of ``library`` (those whose
+    name the regex ``kernels`` finds, if given), in total and per loop."""
     from stereomatching_tpu_torch.utils.build import sass_counts
 
-    for name, c in sass_counts(library).items():
-        print(f"[sass {label}] {name}: total {c['total']}")
-        for start, end, counts in c["loops"]:
-            print(f"[sass {label}]   loop {start:#06x}-{end:#06x}: {counts}")
+    for name, c in sass_counts(library, ops).items():
+        if kernels is None or kernels.search(name):
+            print(f"[sass {label}] {name}: total {c['total']}")
+            for start, end, counts in c["loops"]:
+                print(f"[sass {label}]   loop {start:#06x}-{end:#06x}: {counts}")
+
+
+def time_in_turns(order: list, make, iters: int) -> list:
+    """Each label of ``order`` in turn: ``make(label)`` gives a launch,
+    run once, then timed -> [(label, ms)]."""
+    times = []
+    for label in order:
+        fn = make(label)
+        fn()
+        times.append((label, event_ms(fn, iters)))
+    return times
+
+
+def turns_text(times: list, scale: float = 1.0, fmt: str = ".4f") -> str:
+    return ", ".join(f"{label} {ms * scale:{fmt}}" for label, ms in times)
 
 
 def main_k1_against(src_dir: Path) -> None:
@@ -484,16 +516,14 @@ def main_k1_against(src_dir: Path) -> None:
 
     from stereomatching_tpu_torch import BoundaryMode, StereoParams
     from stereomatching_tpu_torch.ops import fused
-    from stereomatching_tpu_torch.utils.build import NVCC_FLAGS, _target, build, find_nvcc
+    from stereomatching_tpu_torch.utils.build import _target
 
     print(f"[card] {card()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        other_so = Path(tmp) / "match_score_edges_other.so"
-        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(other_so),
-                        str(src_dir / "match_score_edges.cu")], check=True)
-        this_so = build("match_score_edges")
+        libs = build_libraries("match_score_edges", [src_dir], tmp)
+        other_so = libs[src_dir.name]
         print_sass("other", other_so)
-        print_sass("this", this_so)
+        print_sass("this", libs["this"])
         other = ctypes.CDLL(str(other_so))
         other.match_score_edges.argtypes = fused._SIGNATURES["match_score_edges"]
         other.match_score_edges.restype = ctypes.c_int
@@ -522,16 +552,125 @@ def main_k1_against(src_dir: Path) -> None:
             torch.cuda.synchronize()
             same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                        for a, b in zip(mine, outs))
-            times = []
-            for label, fn in (("other", run_other), ("this", run_this),
-                              ("this", run_this), ("other", run_other)):
-                fn()
-                times.append((label, event_ms(fn, 10)))
+            runs = {"other": run_other, "this": run_this}
+            times = time_in_turns(["other", "this", "this", "other"], runs.get, 10)
             print(f"[k1 against] subpixel={sub} outputs equal: {same}; ms per batch of 8 "
-                  + ", ".join(f"{label} {ms:.4f}" for label, ms in times), flush=True)
+                  + turns_text(times), flush=True)
             if not same:
                 sys.exit("the two K1 versions disagree")
     print(f"[k1 against] this library: {_target('match_score_edges').name}")
+
+
+def main_k8_against(src_dir: Path) -> None:
+    """K8 and K9 against the ``match_and_score.cu`` in ``src_dir`` (with
+    the ``match_loop.cuh`` it includes) in one process: every plane of
+    both libraries compared bitwise, then each instance timed in turns
+    other, this, this, other beside its bound; the shared-memory loads,
+    stores, barriers and all instructions of each library's SASS."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import BoundaryMode, StereoParams
+    from stereomatching_tpu_torch.ops import fused
+    from stereomatching_tpu_torch.ops.edges import find_edges
+    from stereomatching_tpu_torch.parallel import make_mesh
+    from stereomatching_tpu_torch.parallel.mesh import run as run_blocks
+    from stereomatching_tpu_torch.parallel.pipeline import prehalo_blocks, shard_extent
+    from stereomatching_tpu_torch.utils.bench import k8_bound_ms, k9_bound_ms
+    from stereomatching_tpu_torch.utils.build import _target, resource_usage
+
+    smi = card()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_libraries("match_and_score", [src_dir], tmp)
+        for label, so in libs.items():
+            print_sass(label, so, ("LDS", "STS", "BAR", "ALL"))
+            print(f"[regs {label}] " + "; ".join(
+                f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
+                for m, r in resource_usage(so).items()), flush=True)
+        fns = {}
+        for label, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            for entry in ("match_and_score", "match_and_score_prehalo"):
+                getattr(lib, entry).argtypes = fused._SIGNATURES[entry]
+                getattr(lib, entry).restype = ctypes.c_int
+            fns[label] = lib
+        other = next(k for k in fns if k != "this")
+        order = [other, "this", "this", other]
+
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(SEED)
+        lt, rt = (torch.from_numpy(rng.integers(0, 256, (8, SIZE, SIZE), dtype=np.uint8)
+                                   .astype(np.float32) / np.float32(256.0)).to(dev)
+                  for _ in range(2))
+        npix = lt.numel()
+
+        def stream():
+            return torch.cuda.current_stream().cuda_stream
+
+        def k8_case(mode, sub):
+            """K8 on the reference-rule edge maps of the random pairs."""
+            p = StereoParams(num_shifts=SHIFTS, mode=mode)
+            el, er = (find_edges(x, p.threshold, mode, "reference") for x in (lt, rt))
+            outs = [torch.empty_like(el) for _ in range(2)] + ([torch.empty_like(lt)] if sub else [])
+
+            def call(lib):
+                err = lib.match_and_score(
+                    el.data_ptr(), er.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                    outs[2].data_ptr() if sub else None, 8, SIZE, SIZE, p.half, SHIFTS,
+                    int(mode == BoundaryMode.GHOST), stream())
+                if err:
+                    raise RuntimeError(f"K8 launch failed: CUDA error {err}")
+            label = f"K8 {mode.value}{', sub-pixel' if sub else ''}, 8x{SIZE}x{SIZE}"
+            return label, k8_bound_ms(npix, SHIFTS, sub), call, outs
+
+        def k9_case(mode):
+            """K9 on the data 2 x rows 4 blocks of the random pairs (exact
+            rule), as the sharded classic tier builds them."""
+            p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule="exact")
+            mesh = make_mesh(data=2, rows=4, devices=[dev] * 8)
+            bl, hs, ws = shard_extent(tuple(lt.shape), mesh)
+            kw = run_blocks(mesh, bl, hs, ws, lambda sh: prehalo_blocks(
+                sh, sh.scatter(lt), sh.scatter(rt), p)[2])[0]
+            l_blk, r_blk, halo = kw["l_blk"], kw["r_blk"], kw["halo"]
+            b, rows_in, w = l_blk.shape
+            kept = rows_in - 2 * halo
+            row0 = kw["row0"].to(dev, torch.int32).contiguous()
+            col0 = torch.zeros_like(row0)
+            outs = [torch.empty((b, kept, w), dtype=torch.int32, device=dev) for _ in range(2)]
+
+            def call(lib):
+                err = lib.match_and_score_prehalo(
+                    l_blk.data_ptr(), r_blk.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                    b, rows_in, w, r_blk.shape[2], halo, p.half, SHIFTS,
+                    int(mode == BoundaryMode.WRAP), int(mode == BoundaryMode.GHOST),
+                    row0.data_ptr(), kw["h_global"], col0.data_ptr(), w, stream())
+                if err:
+                    raise RuntimeError(f"K9 launch failed: CUDA error {err}")
+            label = f"K9 {mode.value}, blocks {tuple(l_blk.shape)}"
+            bnd = k9_bound_ms(l_blk.numel() + r_blk.numel(), b * kept * w, b * 2 * p.half * w,
+                              SHIFTS)
+            return label, bnd, call, outs
+
+        cases = [k8_case(mode, sub) for sub in (False, True)
+                 for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP)]
+        cases += [k9_case(mode) for mode in (BoundaryMode.GHOST, BoundaryMode.WRAP)]
+        for label, bnd, call, outs in cases:
+            call(fns["this"])
+            ref = [o.clone() for o in outs]
+            call(fns[other])
+            torch.cuda.synchronize()
+            if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(outs, ref)):
+                sys.exit(f"{label}: {other} differs from this")
+            del ref
+            times = time_in_turns(order, lambda lb: (lambda: call(fns[lb])), 10)
+            print(f"[k8 against] {label}: outputs equal; bound {bnd[0]:.4f} ms ({bnd[1]}); ms per "
+                  f"batch of 8 " + turns_text(times), flush=True)
+    print(f"[k8 against] this library: {_target('match_and_score').name}; card {smi}")
 
 
 K4_OPS = ("LDG", "STG", "LDGSTS", "LDS", "REDUX", "SHFL", "ALL")
@@ -631,12 +770,7 @@ def main_k4_against(src_dirs: list[Path]) -> None:
         order = order + order[::-1]
 
         def turns(make, iters):
-            times = []
-            for label in order:
-                fn = make(fns[label])
-                fn()
-                times.append((label, event_ms(fn, iters)))
-            return times
+            return time_in_turns(order, lambda label: make(fns[label]), iters)
 
         def same(what, fn_run):
             ref = fn_run(fns["this"])
@@ -709,13 +843,13 @@ def main_k4_against(src_dirs: list[Path]) -> None:
             nbytes = (n * vol.element_size() + (2 * n - 1) * agg.element_size()) * nvox
             times = turns(lambda fn: (lambda: run_sum(fn, vol, agg, n)), 5)
             print(f"[k4 sum] {n} paths: {nbytes / 1e9:.3f} GB, floor {nbytes / 3.35e12 * 1e3:.4f} "
-                  f"ms; ms " + ", ".join(f"{label} {ms:.4f}" for label, ms in times), flush=True)
+                  f"ms; ms " + turns_text(times), flush=True)
         cbytes = (1 + 2 * 2) * shard.numel() + 4 * 2 * seed.numel()
         times = turns(lambda fn: (lambda: k4_call(fn, shard, chain_agg, sgm.Y, False, True,
                                                   seed=seed, carry=chain_carry)), 10)
         print(f"[k4 chain] seeded column launch on [8, {hs}, {SIZE}, {SHIFTS}] (accumulating, "
               f"seed and carry): {cbytes / 1e9:.3f} GB, floor {cbytes / 3.35e12 * 1e6:.1f} us; us "
-              + ", ".join(f"{label} {ms * 1e3:.1f}" for label, ms in times), flush=True)
+              + turns_text(times, 1e3, ".1f"), flush=True)
         del vol, base, agg, shard, seed, chain_agg, chain_carry
 
         # The other instances, on random costs in [0, 60]: the 8-path sum
@@ -741,7 +875,7 @@ def main_k4_against(src_dirs: list[Path]) -> None:
             ]:
                 times = turns(run, iters)
                 cells.append(f"{what} (floor {nbytes / 3.35e9:.4f}) "
-                             + ", ".join(f"{label} {ms:.4f}" for label, ms in times))
+                             + turns_text(times))
             print(f"[k4 sweep] D {d}, {str(vdt)[6:]} volume, {str(adt)[6:]} aggregate, "
                   f"8x{SIZE}x{SIZE}, outputs equal; ms: " + "; ".join(cells), flush=True)
             del vol, agg
@@ -767,18 +901,14 @@ def main_k7_against(src_dirs: list[Path]) -> None:
     from stereomatching_tpu_torch import ModernParams
     from stereomatching_tpu_torch.ops import costvolume, fused_modern
     from stereomatching_tpu_torch.utils.bench import K7_BENCH_KERNELS, K7_SWEEP, k7_bound_ms
-    from stereomatching_tpu_torch.utils.build import _target, resource_usage, sass_counts
+    from stereomatching_tpu_torch.utils.build import _target, resource_usage
 
     smi = card()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_libraries("disparity", src_dirs, tmp)
         for label, so in libs.items():
-            for name, c in sass_counts(so, K7_OPS).items():
-                if K7_BENCH_KERNELS.search(name):
-                    print(f"[sass {label}] {name}: total {c['total']}")
-                    for start, end, counts in c["loops"]:
-                        print(f"[sass {label}]   loop {start:#06x}-{end:#06x}: {counts}")
+            print_sass(label, so, K7_OPS, K7_BENCH_KERNELS)
             print(f"[regs {label}] " + "; ".join(
                 f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
                 for m, r in resource_usage(so).items()), flush=True)
@@ -821,16 +951,13 @@ def main_k7_against(src_dirs: list[Path]) -> None:
                                  f"right {right}")
                 del ref
             iters = 10 if window < 50 else 3
-            times = []
-            for label in order:
-                fn = fns[label]
-                call(fn, inputs, d, window, census, 0)
-                times.append((label, event_ms(lambda: call(fn, inputs, d, window, census, 0),
-                                              iters)))
+            times = time_in_turns(
+                order, lambda label: (lambda: call(fns[label], inputs, d, window, census, 0)),
+                iters)
             route = fused_modern.route(ModernParams(num_disparities=d, window=window, cost=cost))
             print(f"[k7 instance] {cost} window {window} D {d}, 8x{SIZE}x{SIZE}, both views equal; "
                   f"this: {route}; bound {k7_bound_ms(cost, npix, d)[0]:.4f} ms; ms per view "
-                  + ", ".join(f"{label} {ms:.4f}" for label, ms in times), flush=True)
+                  + turns_text(times), flush=True)
     print(f"[k7 against] this library: {_target('disparity').name}; card {smi}")
 
 
@@ -842,6 +969,8 @@ def main() -> None:
                         help="profile the sharded tier on a data x rows mesh on cuda:0")
     parser.add_argument("--k1-against", metavar="DIR", type=Path,
                         help="time K1 against the match_score_edges.cu in DIR")
+    parser.add_argument("--k8-against", metavar="DIR", type=Path,
+                        help="time K8 and K9 against the match_and_score.cu in DIR")
     parser.add_argument("--k4-against", metavar="DIR", type=Path, nargs="+",
                         help="time K4 against the sgm_directional.cu in each DIR")
     parser.add_argument("--k7-against", metavar="DIR", type=Path, nargs="+",
@@ -854,6 +983,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     if args.k1_against:
         main_k1_against(args.k1_against.resolve())
+    elif args.k8_against:
+        main_k8_against(args.k8_against.resolve())
     elif args.k4_against:
         main_k4_against([d.resolve() for d in args.k4_against])
     elif args.k7_against:
