@@ -192,14 +192,16 @@ def main() -> None:
     pkg_dir = Path(stereomatching_tpu_torch.__file__).resolve().parent
     check(pkg_dir.parent == ROOT, f"port imported from {pkg_dir}, not {ROOT}")
     from stereomatching_tpu_torch import BoundaryMode, ModernParams, StereoParams
-    from stereomatching_tpu_torch.models import modern
+    from stereomatching_tpu_torch.models import classic, modern
     from stereomatching_tpu_torch.models.classic import ClassicPipeline
     from stereomatching_tpu_torch.ops import (
         costvolume, fused, fused_diffusion, fused_modern, fused_sgm, sgm)
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
     from stereomatching_tpu_torch.utils.bench import (
-        FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S, K7_BENCH_KERNELS, K7_SWEEP, bound,
-        k1_bound_ms, k7_bound_ms, k8_bound_ms, k9_bound_ms)
+        HBM_BYTES_PER_S, INT32_OPS_PER_S, K2_BENCH_KERNELS, K5_BENCH_KERNELS,
+        K7_BENCH_KERNELS, K7_SWEEP, bound, k1_bound_ms,
+        k2_bound_ms, k3_bound_ms, k5_bound_ms, k6_bound_ms, k7_bound_ms, k8_bound_ms,
+        k9_bound_ms)
     from stereomatching_tpu_torch.utils.build import build_all
 
     dev = torch.device("cuda", 0)
@@ -250,17 +252,25 @@ def main() -> None:
     print(f"[3 K1] 4x{SIZE}x{SIZE}, D={SHIFTS}, sw=21: kernel == plain bitwise "
           f"({'; '.join(notes)}; max |d| {k1_err})", flush=True)
 
-    # Phase 4: K2 against its plain version on K1's winner planes.
-    k2_err = 0
+    # Phase 4: K2 against its plain version on K1's winner planes: with
+    # the pipeline's bound (byte cells), with none (int32 cells, a resumed
+    # web's route), and at times 100 (chained launches).
+    k2_err, notes = 0, []
     for mode, win in winners.items():
-        got = fused_diffusion.fill_web_holes_range(win, 32)
-        ref = fused_diffusion.fill_web_holes_range_reference(win, 32)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("web", "min", "max"), got, ref):
-            err = max_abs_diff(a, b)
-            k2_err = max(k2_err, err)
-            check(err == 0, f"K2 {mode.value} {name} differs from plain (max |d| {err})")
-    print(f"[4 K2] 4x{SIZE}x{SIZE} winner planes, times=32: web, min, max == "
+        for times, vb in ((32, SHIFTS + 1), (32, None), (100, SHIFTS + 1)):
+            got = fused_diffusion.fill_web_holes_range(win, times, vb)
+            ref = fused_diffusion.fill_web_holes_range_reference(win, times)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("web", "min", "max"), got, ref):
+                err = max_abs_diff(a, b)
+                k2_err = max(k2_err, err)
+                check(err == 0, f"K2 {mode.value} times {times} value_bound {vb} {name} "
+                      f"differs from plain (max |d| {err})")
+            plan = fused_diffusion.k2_plan(times, vb)
+            if mode == BoundaryMode.GHOST:
+                notes.append(f"times {times} value_bound {vb}: {plan.storage_bytes}-byte cells, "
+                             f"{plan.launches} launch(es)")
+    print(f"[4 K2] 4x{SIZE}x{SIZE} winner planes ({'; '.join(notes)}): web, min, max == "
           f"plain bitwise in both modes (max |d| {k2_err})", flush=True)
     del winners
 
@@ -320,7 +330,8 @@ def main() -> None:
     win = torch.from_numpy(arts["web-1"]).to(dev)
     k1_ms = cuda_time_ms(lambda: fused.match_score_edges(lt, rt, params), 5)
     k1_plain_ms = cuda_time_ms(lambda: fused.match_score_edges_reference(lt, rt, params), 2)
-    k2_ms = cuda_time_ms(lambda: fused_diffusion.fill_web_holes_range(win, params.times), 5)
+    k2_ms = cuda_time_ms(lambda: fused_diffusion.fill_web_holes_range(
+        win, params.times, classic.winner_bound(params)), 5)
     k2_plain_ms = cuda_time_ms(
         lambda: fused_diffusion.fill_web_holes_range_reference(win, params.times), 2)
     print(f"[6 times] {smi}: pipeline {pipe_ms:.4f} ms/pair with kernels, "
@@ -331,10 +342,11 @@ def main() -> None:
           f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms "
           f"(per batch of {BATCH})", flush=True)
     npix = BATCH * SIZE * SIZE
-    # K1: ``k1_bound_ms`` (the shift loop's count, as K8).  K2: one int32
-    # plane in and out; ~6 int ops per pixel and step.
+    # K1: ``k1_bound_ms`` (the shift loop's count, as K8).  K2:
+    # ``k2_bound_ms`` (one int32 plane in and out, 5 int ops per cell and
+    # step).
     k1_bound = k1_bound_ms(npix, SHIFTS)
-    k2_bound = bound(8 * npix, 6 * npix * (params.times - 1), INT32_OPS_PER_S)
+    k2_bound = k2_bound_ms(npix, params.times)
     del kernels, lt, rt, win, arts, plain, matcher
 
     # Phase 7: K3-K6 against their plain versions at 4x1024x1024, D=64:
@@ -366,11 +378,18 @@ def main() -> None:
         hold("sgm_directional", agg, sgm.sgm_aggregate(vol, 8, 96).to(torch.int16),
              f"{cost} 4-path sum")
         del vol
+        # K5 on k5_route's route (the segments here) and on the other
+        # (wide), with and without the second best.
+        check(fused_sgm.k5_route(agg.shape, agg.dtype) == "segments",
+              f"K5 route {fused_sgm.k5_route(agg.shape, agg.dtype)} at the bench shape")
+        for uniq in (False, True):
+            tail_ref = fused_sgm.sgm_tail_reference(agg, uniq)
+            for route, tail in (("segments", fused_sgm.sgm_tail(agg, uniq)),
+                                ("wide", fused_sgm._tail_on_card(agg, uniq, "wide"))):
+                for what, a, b in zip(("disparity", "subpixel", "cost", "disparity_right",
+                                       "c2"), tail, tail_ref):
+                    hold("sgm_tail", a, b, f"{cost} {route} uniqueness={uniq} {what}")
         tail = fused_sgm.sgm_tail(agg, True)
-        tail_ref = fused_sgm.sgm_tail_reference(agg, True)
-        for what, a, b in zip(("disparity", "subpixel", "cost", "disparity_right", "c2"),
-                              tail, tail_ref):
-            hold("sgm_tail", a, b, f"{cost} {what}")
         valid = costvolume.lr_consistency(tail[0], tail[3], 1, SHIFTS)
         hold("fill_invalid", fused_diffusion.fill_invalid(tail[1], valid, 16),
              fused_diffusion.fill_invalid_reference(tail[1], valid, 16), f"{cost} fill")
@@ -379,7 +398,8 @@ def main() -> None:
                      f"{float(valid.float().mean()):.2%} LR-valid")
         del agg, tail, tail_ref, valid, pix, codes
     print(f"[7 K3-K6] 4x{SIZE}x{SIZE}, D={SHIFTS}: volume, each path and the 4-path "
-          f"sum, tail (+ second best), fill == plain bitwise ({'; '.join(notes)}; "
+          f"sum, tail on both routes with and without the second best, fill == plain "
+          f"bitwise ({'; '.join(notes)}; "
           f"max |d| {errs})", flush=True)
 
     # Phase 8: the SGM slice through ModernMatcher (bench.py's SGM params:
@@ -453,19 +473,19 @@ def main() -> None:
                              sub, valid, 16), 2)),
     }
     nvox = npix * SHIFTS
-    # K3: two int32 code planes in, the int8 volume out; xor + popcount per
-    # element.  K4 (the 4 launches of one forward): the volume in, the
-    # int16 aggregate out; ~9 int ops per element and path.  K5: the
-    # aggregate in, four 4-byte planes out; ~10 int ops per element (left
-    # argmin carries + right-view argmin).  K6: f32 plane + bool mask in,
-    # f32 out; ~12 float ops per pixel and sweep.
+    # K3, K5, K6: ``k3_bound_ms``, ``k5_bound_ms``, ``k6_bound_ms``.  K4
+    # (the 4 launches of one forward): the volume in, the int16 aggregate
+    # out; ~9 int ops per element and path.
     vb, ab = torch.tensor([], dtype=st).element_size(), torch.tensor([], dtype=odt).element_size()
     bounds = {
-        "sgm_volume": bound(8 * npix + vb * nvox, 2 * nvox, INT32_OPS_PER_S),
+        "sgm_volume": k3_bound_ms(npix, SHIFTS, vb, "census"),
         "sgm_directional": bound((vb + ab) * nvox, 4 * 9 * nvox, INT32_OPS_PER_S),
-        "sgm_tail": bound(ab * nvox + 16 * npix, 10 * nvox, INT32_OPS_PER_S),
-        "fill_invalid": bound(9 * npix, 12 * 16 * npix, FP32_OPS_PER_S),
+        "sgm_tail": k5_bound_ms(npix, SHIFTS, ab),
+        "fill_invalid": k6_bound_ms(npix, 16),
     }
+    # K5 with the second best (the 8-direction route's tail).
+    k5u_ms = cuda_time_ms(lambda: fused_sgm.sgm_tail(agg, True), 5)
+    k5u_bound = k5_bound_ms(npix, SHIFTS, ab, uniqueness=True)
     del vol, agg, tail, sub, valid, codes
     pipe = modern.ModernPipeline(mparams)
     sgm_plain_ms = cuda_time_ms(lambda: modern.modern_forward_reference(lt, rt, mparams), 1) / BATCH
@@ -484,6 +504,7 @@ def main() -> None:
           f"ModernMatcher u8 in/numpy out {mmatcher_ms:.4f} ms/pair (batch {BATCH}); "
           + "; ".join(f"{k} {a:.4f} ms vs plain {b:.4f} ms (bound {bounds[k][0]:.4f})"
                       for k, (a, b) in ms.items())
+          + f"; sgm_tail with the second best {k5u_ms:.4f} ms (bound {k5u_bound[0]:.4f})"
           + f" (per batch of {BATCH})", flush=True)
 
     del big, pipe
@@ -733,7 +754,8 @@ def main() -> None:
     arts = rmatcher(left_u8, right_u8)
     ref_counts = {name: fn.launches for name, fn in classic_wrappers.items()}
     want = {"match_score_edges": 0, "match_and_score": 1,
-            "fill_web_holes_range": rparams.times}
+            "fill_web_holes_range": fused_diffusion.k2_plan(
+                rparams.times, classic.winner_bound(rparams)).launches}
     check(ref_counts == want, f"reference-rule slice kernel launches {ref_counts}, want {want}")
     launches["match_and_score"] = ref_counts["match_and_score"]
     plain = {k: v.cpu().numpy() for k, v in plain_artifacts(lt, rt, rparams).items()}
@@ -1149,8 +1171,6 @@ def main() -> None:
     # kernel as usual, and the planes equal the CPU route's bit for bit, on
     # small pairs; then the box route at D 320 on a rows-2 mesh of cuda:0,
     # equal to the single-device route.
-    from stereomatching_tpu_torch.models import classic
-
     f5_wrappers = {"match_score_edges": fused.match_score_edges,
                    "match_and_score": fused.match_and_score,
                    "match_and_score_prehalo": fused.match_and_score_prehalo,
@@ -1274,6 +1294,29 @@ def main() -> None:
                for m, r in resource_usage(k7_lib).items()}
     print(json.dumps({"k7_sass": k7_sass, "k7_registers": k7_regs}), flush=True)
 
+    # K5's segment kernels at the bench instance (int16, a pixel's run in
+    # one word a lane) with and without the second best, and K2's fused
+    # kernel on byte cells in one launch: shared loads and stores,
+    # barriers, cp.async copies, REDUX and all instructions per loop, and
+    # their registers.  K5 reads the aggregate in one pass: one block
+    # barrier, after its copies, and no loop with a barrier.
+    for key, target, kernels in (("k5_sass", "sgm_tail", K5_BENCH_KERNELS),
+                                 ("k2_sass", "fill_web_holes", K2_BENCH_KERNELS)):
+        lib = _target(target)
+        counts = {kernel_name(name): {"total": c["total"], "loops": [
+            {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
+            for name, c in sass_counts(lib, ("LDS", "STS", "BAR", "LDGSTS", "REDUX",
+                                             "ALL")).items() if kernels.search(name)}
+        regs = {m: r["REG"] for m, r in resource_usage(lib).items() if kernels.search(m)}
+        check(len(counts) == (2 if key == "k5_sass" else 1) and len(regs) == len(counts),
+              f"{key}: bench kernels in SASS {list(counts)}, registers {regs}")
+        if key == "k5_sass":
+            for name, c in counts.items():
+                check(c["total"]["BAR"] == 1 and c["total"]["LDGSTS"] > 0
+                      and all(loop["BAR"] == 0 for loop in c["loops"]),
+                      f"K5 {name}: not one staged pass ({c['total']})")
+        print(json.dumps({key: counts, key.replace("sass", "registers"): regs}), flush=True)
+
     # K7 over the sweep of tools/profile_torch_pipeline.py (8 random
     # 1024x1024 pairs, the left view): each instance's kernel, time and
     # bound.  Census codes are those of the 5x5 transform (24 bits).
@@ -1339,6 +1382,10 @@ def main() -> None:
                      "ms_sharded_4path": chain_ms, "ms_unsharded_4path_same_inputs": unsharded_ms})
     table[1].update({"launches_sharded_step": sh_counts["classic"]["fill_web_holes_step"]})
     table[5].update({"launches_sharded_step": mod_counts["SGM"]["fill_invalid_step"]})
+    # K5 with the second best (the 8-direction route's tail), and the
+    # route the bench instance takes.
+    table[4].update({"route_taken": "segments", "ms_uniqueness": k5u_ms,
+                     "bound_ms_uniqueness": k5u_bound[0], "bound_by_uniqueness": k5u_bound[1]})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

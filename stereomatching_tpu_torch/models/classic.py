@@ -27,7 +27,7 @@ every device; its diffusion runs as K2 like the other routes.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -44,19 +44,31 @@ from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range
 Artifacts = Dict[str, torch.Tensor]
 
 
-def classic_finish(winner: torch.Tensor, params: StereoParams) -> Artifacts:
+def classic_finish(
+    winner: torch.Tensor, params: StereoParams, value_bound: Optional[int] = None
+) -> Artifacts:
     """The finishing phases alone — diffusion + contour from a post-argmax
     winner web [H, W] or [B, H, W].  The resume entry point: a saved
     ``web-1`` checkpoint fed back through these phases gives the same
     artifacts as the uninterrupted run (they are pure integer functions
-    of the winner web)."""
-    web, min_e, max_e = fill_web_holes_range(winner, params.times)
+    of the winner web).  ``value_bound``: a caller-proven exclusive upper
+    bound on the web's values (``fill_web_holes_range``'s); the pipelines
+    pass ``num_shifts + 1`` for the winner plane they computed, the resume
+    path ``None`` (a web read from a file proves nothing)."""
+    web, min_e, max_e = fill_web_holes_range(winner, params.times, value_bound)
     return {
         "web-2": web,
         "output-0": contour_bands(web, params.lines, min_e, max_e),
         "min_elevation": min_e,
         "max_elevation": max_e,
     }
+
+
+def winner_bound(params: StereoParams) -> int:
+    """The exclusive upper bound of a winner plane the matchers computed:
+    its values lie in [0, num_shifts] (``ops/argmax.py``; the JAX
+    package's ``value_bound``, ``stereomatching_tpu/models/classic.py``)."""
+    return params.num_shifts + 1
 
 
 def _match_stage(params: StereoParams, sharded: bool = False) -> str:
@@ -114,7 +126,7 @@ def _forward(
         "edges-2": edges_r,
         "score_best": best,
         "web-1": winner,
-        **classic_finish(winner, params),
+        **classic_finish(winner, params, winner_bound(params)),
     }
     if subpixel:
         out["subpixel"] = sub[0]
@@ -171,8 +183,9 @@ def build_classic_pipeline(params: StereoParams, subpixel: bool = False) -> Clas
 
 
 def build_classic_finish_pipeline(params: StereoParams) -> Callable[[torch.Tensor], Artifacts]:
-    """``classic_finish`` for fixed params (the CLI's ``--resume``)."""
-    return torch.no_grad()(functools.partial(classic_finish, params=params))
+    """``classic_finish`` for fixed params (the CLI's ``--resume``), with
+    no bound on the web's values: K2 stores it as int32."""
+    return torch.no_grad()(functools.partial(classic_finish, params=params, value_bound=None))
 
 
 def build_classic_collect_pipeline(
@@ -199,7 +212,7 @@ def build_classic_collect_pipeline(
             "scores": scores,
             "score_best": best,
             "web-1": winner,
-            **classic_finish(winner, params),
+            **classic_finish(winner, params, winner_bound(params)),
         }
 
     return forward

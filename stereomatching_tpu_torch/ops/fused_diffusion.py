@@ -13,17 +13,19 @@
 Each runs its CUDA kernel on CUDA tensors and its plain torch version
 (``*_reference``) on CPU tensors.  A failed build or launch raises;
 nothing falls back.  ``<wrapper>.launches`` counts the CUDA kernel
-launches the C entry issues: for K2 one ``diffuse_step`` per Jacobi step
-and one ``image_range``, ``max(times - 1, 0) + 1`` per call; for K6 one
-``fill_step`` per sweep, ``iterations`` per call; one per call for the
-two step wrappers.
+launches the C entry issues: for K2 one ``fused_kernel`` per
+``K2_MAX_STEPS`` Jacobi steps of its storage, each image's min and max
+folded into the last, ``k2_plan(times, value_bound).launches`` per call
+(1 up to 17 times at byte and int32 storage, 32 at 16-bit; 2 at the
+classic pipeline's 32); for K6 one ``fill_step`` per
+sweep, ``iterations`` per call; one per call for the two step wrappers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,10 +44,57 @@ def fill_web_holes_range_reference(
     return out, out.amin(dim=(-2, -1)), out.amax(dim=(-2, -1))
 
 
+# K2's storage (``csrc/fill_web_holes.cu``): cells of 1, 2 or 4 bytes in
+# shared memory, chosen from a caller-proven bound on the web's values;
+# the most Jacobi steps one launch runs at each (its halo; the C entry
+# ``fill_web_holes_max_steps``); its tiles (rows, columns).
+K2_MAX_STEPS = {1: 16, 2: 31, 4: 16}
+K2_TILES = {1: (128, 128), 2: (64, 128), 4: (64, 64)}
+K2_STORAGE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+class K2Plan(NamedTuple):
+    """K2's storage bytes per cell, its launches and its Jacobi steps."""
+
+    storage_bytes: int
+    launches: int
+    steps: int
+
+
+def k2_plan(times: int, value_bound: Optional[int] = None) -> K2Plan:
+    """K2's plan for ``times`` and a web whose values the caller proves to
+    lie in [0, ``value_bound``): 1-byte cells up to a bound of 256, 2-byte
+    up to 65536, else (and for ``None``: a web read from a file) int32;
+    ``ceil(steps / K2_MAX_STEPS[storage])`` launches, at least one.
+    Chosen before any launch from (times, value_bound) alone."""
+    if value_bound is not None and (isinstance(value_bound, bool) or value_bound < 1):
+        raise ValueError(f"value_bound must be None or an int >= 1, got {value_bound!r}")
+    if value_bound is not None and value_bound <= 1 << 8:
+        nbytes = 1
+    elif value_bound is not None and value_bound <= 1 << 16:
+        nbytes = 2
+    else:
+        nbytes = 4
+    steps = max(times - 1, 0)
+    return K2Plan(nbytes, max(1, -(-steps // K2_MAX_STEPS[nbytes])), steps)
+
+
+def k2_smem_bytes(storage_bytes: int, steps: int) -> int:
+    """Dynamic shared memory of a K2 launch running ``steps`` steps at
+    ``storage_bytes`` per cell: two planes of its tile with a halo of
+    ``steps`` rows and ``steps + cells a word - 1`` columns rounded to
+    whole words (the C entry ``fill_web_holes_smem_bytes``, which a CUDA
+    test pins)."""
+    th, tw = K2_TILES[storage_bytes]
+    c = 4 // storage_bytes
+    hc = -(-(steps + c - 1) // c) * c
+    return 2 * (th + 2 * steps) * (tw + 2 * hc) * storage_bytes
+
+
 # C entry of each source: (function, argtypes); both return a CUDA error.
 _ENTRIES = {
     "fill_web_holes": ("fill_web_holes_range",
-                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "fill_invalid": ("fill_invalid",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
@@ -67,50 +116,63 @@ def _lib(name: str) -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    if name == "fill_web_holes":
+        lib.fill_web_holes_max_steps.argtypes = [ctypes.c_int]
+        lib.fill_web_holes_max_steps.restype = ctypes.c_int
+        lib.fill_web_holes_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.fill_web_holes_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _launch(web: torch.Tensor, times: int):
+def _launch(web: torch.Tensor, times: int, value_bound: Optional[int]):
     if web.ndim not in (2, 3):
         raise ValueError(f"need [H, W] or [B, H, W], got {tuple(web.shape)}")
     if web.dtype != torch.int32 or not web.is_contiguous():
         raise ValueError("web must be a contiguous int32 tensor")
+    plan = k2_plan(times, value_bound)
     squeeze = web.ndim == 2
     if squeeze:
         web = web[None]
     bsz, h, w = web.shape
     dev = web.device
     out = torch.empty_like(web)
-    # Two more step buffers once there are >= 2 steps (the C side rotates
-    # three buffers and never writes the input).
-    scratch = [torch.empty_like(web) for _ in range(2)] if times >= 3 else []
+    # Between chained launches both planes (X[t-1], X[t]) at the storage's
+    # width: two planes for two launches, four (ping-pong) from three.
+    n_planes = 0 if plan.launches == 1 else 2 if plan.launches == 2 else 4
+    scratch = torch.empty((n_planes, bsz, h, w), dtype=K2_STORAGE[plan.storage_bytes],
+                          device=dev) if n_planes else None
     mn = torch.full((bsz,), INT32_MAX, dtype=torch.int32, device=dev)
     mx = torch.full((bsz,), INT32_MIN, dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in scratch] or [None, None]
     lib = _lib("fill_web_holes")
     with torch.cuda.device(dev):
         err = lib.fill_web_holes_range(
-            web.data_ptr(), out.data_ptr(), *ptrs, mn.data_ptr(),
-            mx.data_ptr(), bsz, h, w, times,
+            web.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            mn.data_ptr(), mx.data_ptr(), bsz, h, w, times, plan.storage_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"fill_web_holes_range kernel launch failed: CUDA error {err}")
-    fill_web_holes_range.launches += max(times - 1, 0) + 1
+    fill_web_holes_range.launches += plan.launches
     return (out[0], mn[0], mx[0]) if squeeze else (out, mn, mx)
 
 
 def fill_web_holes_range(
-    web: torch.Tensor, times: int
+    web: torch.Tensor, times: int, value_bound: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Winner web [H, W] or [B, H, W] -> (web after ``times-1`` steps,
     min, max), int32; min/max are per image ([B], or scalars for 2-D
-    input).  CPU tensors run the plain version, CUDA tensors the kernel."""
+    input).  ``value_bound``: a caller-proven exclusive upper bound on the
+    web's values, which are then >= 0 too (the JAX function's argument;
+    the classic pipeline's winner plane lies in [0, num_shifts]); K2
+    stores cells in 1 or 2 bytes below 256 or 65536 (``k2_plan``), int32
+    for ``None``.  A web outside its bound gives no defined result.  CPU
+    tensors run the plain version, CUDA tensors the kernel."""
+    k2_plan(times, value_bound)  # checks value_bound on every device
     if web.device.type == "cpu":
         return fill_web_holes_range_reference(web, times)
     if web.device.type != "cuda":
         raise ValueError(f"unsupported device {web.device}")
-    return _launch(web, times)
+    return _launch(web, times, value_bound)
 
 
 fill_web_holes_range.launches = 0

@@ -39,7 +39,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sgm_volume": [_P, _P, _P] + [_I] * 6 + [_P],
     "sgm_directional": [_P, _I, _P] + [_I] * 10 + [_P, _P, _P],
-    "sgm_tail": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P],
+    "sgm_tail": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
 }
 
 
@@ -51,6 +51,9 @@ def _lib(name: str) -> ctypes.CDLL:
     fn = getattr(lib, name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
+    if name == "sgm_tail":
+        lib.sgm_tail_smem_bytes.argtypes = [_I] * 3
+        lib.sgm_tail_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -269,12 +272,52 @@ def sgm_tail_reference(
     return disp, sub, cost, dr, sgm.second_best_outside_neighborhood(agg, disp)
 
 
+# K5's segment route (``csrc/sgm_tail.cu`` ``seg_kernel``): a block stages
+# K5_SEG_PX pixels of a row, plus the D - 1 its right view reaches, in
+# shared memory; a lane holds up to K5_MAX_LANE_WORDS words of a pixel's
+# run.  Shapes past either limit take the wide route (``tail_kernel``).
+K5_SEG_PX = 128
+K5_MAX_LANE_WORDS = 8
+K5_SMEM_LIMIT = 232448  # the most a block of an H100 may ask for
+
+
+def k5_lane_words(element_size: int, d: int) -> int:
+    """32-bit words a lane holds of one pixel's run in K5's segment route:
+    the run's 128-byte rows rounded up to a power of two."""
+    rows = -(-d * element_size // 128)
+    return 1 << max(rows - 1, 0).bit_length()
+
+
+def k5_smem_bytes(element_size: int, d: int, w: int) -> int:
+    """Dynamic shared memory of K5's segment route for an aggregate of
+    ``element_size`` bytes at ``d`` disparities and ``w`` columns: a
+    segment's runs in whole 16-byte chunks from the boundary below it
+    (the C entry ``sgm_tail_smem_bytes``, which a CUDA test pins)."""
+    px = min(K5_SEG_PX + d - 1, w)
+    return -(-px * d * element_size // 16) * 16 + 16
+
+
+def k5_route(shape, dtype: torch.dtype) -> str:
+    """K5's route for an aggregate of ``shape`` [..., H, W, D] and
+    ``dtype`` (int16 or int32), chosen before launch from (dtype, D, W)
+    alone: "segments" where a lane holds a pixel's run in at most
+    ``K5_MAX_LANE_WORDS`` words and a segment fits ``K5_SMEM_LIMIT``,
+    else "wide".  Both are kernels; neither falls back to the other."""
+    w, d = int(shape[-2]), int(shape[-1])
+    esz = torch.empty((), dtype=dtype).element_size()
+    if (k5_lane_words(esz, d) <= K5_MAX_LANE_WORDS
+            and k5_smem_bytes(esz, d, w) <= K5_SMEM_LIMIT):
+        return "segments"
+    return "wide"
+
+
 def sgm_tail(agg: torch.Tensor, with_uniqueness: bool = False) -> Tuple[torch.Tensor, ...]:
     """The SGM tail in one pass over the aggregate [..., H, W, D] (int16
     or int32) -> (disparity int32, subpixel f32, cost int32,
     disparity_right int32) [..., H, W], plus the second-best cost
     outside the winner's +-1 (int32) with ``with_uniqueness``.  CPU
-    tensors run the plain version, CUDA tensors K5."""
+    tensors run the plain version, CUDA tensors K5 on ``k5_route``'s
+    route (one launch either way)."""
     if agg.ndim not in (3, 4):
         raise ValueError(f"need [H, W, D] or [B, H, W, D], got {tuple(agg.shape)}")
     if agg.dtype not in _AGG_DTYPES:
@@ -283,6 +326,12 @@ def sgm_tail(agg: torch.Tensor, with_uniqueness: bool = False) -> Tuple[torch.Te
         return sgm_tail_reference(agg, with_uniqueness)
     if not agg.is_contiguous():
         raise ValueError("the aggregate must be contiguous")
+    return _tail_on_card(agg, with_uniqueness, k5_route(agg.shape, agg.dtype))
+
+
+def _tail_on_card(agg: torch.Tensor, with_uniqueness: bool, route: str) -> Tuple[torch.Tensor, ...]:
+    """K5 on a contiguous CUDA aggregate [..., H, W, D] by ``route``
+    ("segments" or "wide"; ``sgm_tail`` passes ``k5_route``'s)."""
     squeeze = agg.ndim == 3
     if squeeze:
         agg = agg[None]
@@ -293,7 +342,8 @@ def sgm_tail(agg: torch.Tensor, with_uniqueness: bool = False) -> Tuple[torch.Te
         outs.append(torch.empty((b, h, w), dtype=torch.int32, device=agg.device))
     c2_ptr = outs[4].data_ptr() if with_uniqueness else None
     _launch("sgm_tail", agg.device, agg.data_ptr(), agg.element_size(),
-            *[o.data_ptr() for o in outs[:4]], c2_ptr, b, h, w, d)
+            *[o.data_ptr() for o in outs[:4]], c2_ptr, b, h, w, d,
+            {"wide": 0, "segments": 1}[route])
     sgm_tail.launches += 1
     return tuple(o[0] for o in outs) if squeeze else tuple(outs)
 

@@ -1,6 +1,7 @@
 """The card's peak rates and the bounds that ``chip_smoke.py`` and
-``tools/profile_torch_pipeline.py`` hold the kernels' times against, and
-the K7 instances both of them time, kept in one place."""
+``tools/profile_torch_pipeline.py`` hold the kernels' times against, the
+K7 instances both of them time and the bench kernels whose SASS both
+count, kept in one place."""
 
 from __future__ import annotations
 
@@ -40,6 +41,16 @@ K7_SWEEP = [("sad", 9, 64), ("sad", 1, 64), ("sad", 5, 64), ("sad", 15, 64), ("s
 K7_BENCH_KERNELS = re.compile(
     r"strips_kernel(<(false|\(bool\)0), \(int\)2>|ILb0ELi2E)"
     r"|disparity_kernel(<(false|\(bool\)0), (true|\(bool\)1)>|ILb0ELb1E)")
+
+
+# K5's segment kernels at the bench instance (int16, one word a lane,
+# word loads), with and without the second best; K2's fused kernel on
+# byte cells in one launch (first and last); as cu++filt shows them or
+# mangled.
+K5_BENCH_KERNELS = re.compile(
+    r"seg_kernel(<short, \(int\)1, (true|\(bool\)1), |IsLi1ELb1E)")
+K2_BENCH_KERNELS = re.compile(
+    r"fused_kernel(<unsigned char, (true|\(bool\)1), (true|\(bool\)1)>|IhLb1ELb1E)")
 
 
 def k7_bound_ms(cost: str, npix: int, d: int) -> tuple[float, str]:
@@ -110,3 +121,58 @@ def k9_bound_ms(in_cells: int, kept_px: int, halo_px: int, d: int) -> tuple[floa
     the kept pixels' adds).  -> (ms, "operations" or "bytes")."""
     return bound(4 * in_cells + 8 * kept_px,
                  loop_ops(kept_px, d) + (1 + 2 / 32) * halo_px * d, INT32_OPS_PER_S)
+
+
+def k3_bound_ms(npix: int, d: int, volume_bytes: int, cost: str = "census") -> tuple[float, str]:
+    """K3's least time on the card for ``npix`` pixels at ``d``
+    disparities: two int32 code (or pixel) planes in (8 B per pixel), the
+    volume out (``volume_bytes`` per element); per element 2 int32 ops (an
+    XOR and a population count for census, a difference and an absolute
+    value for SAD), census also the larger of that and the population
+    counts on their own unit.  -> (ms, "operations" or "bytes")."""
+    nvox = npix * d
+    ops_ms = 2 * nvox / INT32_OPS_PER_S * 1e3
+    if cost == "census":
+        ops_ms = max(ops_ms, nvox / POPC_PER_S * 1e3)
+    bytes_ms = (8 * npix + volume_bytes * nvox) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def k5_bound_ms(npix: int, d: int, agg_bytes: int, uniqueness: bool = False) -> tuple[float, str]:
+    """K5's least time on the card for ``npix`` pixels at ``d``
+    disparities: the aggregate read once (``agg_bytes`` x d per pixel) and
+    four 4-byte planes written (disparity, sub-pixel, cost, right
+    disparity; the second best a fifth with ``uniqueness``): 16 or 20 B
+    per pixel.  Per element 2 int32 ops for each first minimum, the left
+    view's and the right view's (the key or the compare, and the running
+    minimum), and 2 more for the second best (the |d - d*| > 1 test folded
+    into the select, and the minimum).  -> (ms, "operations" or
+    "bytes")."""
+    nvox = npix * d
+    nbytes = agg_bytes * nvox + (20 if uniqueness else 16) * npix
+    return bound(nbytes, (6 if uniqueness else 4) * nvox, INT32_OPS_PER_S)
+
+
+# The int32 instructions per cell and step of the web diffusion (K2): the
+# four neighbours' sum as two 3-input adds, the floor division by 4 (one
+# shift), the test of the cell's own value against 0 and the select
+# between the average and the step before.  Packing four byte cells in a
+# word would go lower and is not counted.
+K2_CELL_OPS = 5
+
+
+def k2_bound_ms(npix: int, times: int) -> tuple[float, str]:
+    """K2's least time on the card for ``npix`` cells at ``times`` (so
+    ``max(times - 1, 0)`` Jacobi steps): ``K2_CELL_OPS`` per cell and
+    step; the int32 web read once and the int32 result written once
+    (8 B per cell).  -> (ms, "operations" or "bytes")."""
+    return bound(8 * npix, K2_CELL_OPS * npix * max(times - 1, 0), INT32_OPS_PER_S)
+
+
+def k6_bound_ms(npix: int, iterations: int) -> tuple[float, str]:
+    """K6's least time on the card for ``npix`` pixels and ``iterations``
+    sweeps: the float32 disparity and the bool validity in, the float32
+    result out (9 B per pixel); about 12 float32 ops per pixel and sweep
+    (the two neighbour sums of four, the validity products, the divide
+    and the selects).  -> (ms, "operations" or "bytes")."""
+    return bound(9 * npix, 12 * iterations * npix, FP32_OPS_PER_S)

@@ -60,21 +60,63 @@ def test_match_score_edges_kernel_matches_plain(cuda_device, mode, shape_shifts_
         assert torch.equal(a, b)
 
 
+# K2 on odd shapes: one cell, one row, one column, 3 x 61 x 97, and tiles
+# cut by the image's edge (W not a multiple of the tiles' 128 or 64), and
+# 300 x 260, whose middle tiles reach no cell outside the image.
+K2_SHAPES = [(1, 1, 1), (2, 1, 300), (2, 300, 1), (3, 61, 97), (2, 130, 200), (1, 300, 260)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("times", [0, 1, 2, 3, 4, 32])
-def test_fill_web_holes_range_kernel_matches_plain(cuda_device, times):
+@pytest.mark.parametrize("value_bound", [65, 256, 65536, None])
+@pytest.mark.parametrize("times", [0, 1, 2, 3, 32, 100])
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_fill_web_holes_range_kernel_matches_plain(cuda_device, shape, times, value_bound):
+    """K2 at every storage width, one launch and chained (times 100; 32
+    at int32), on webs within the bound with 40% holes; the input is
+    never written; ``k2_plan``'s launches."""
     rng = np.random.default_rng(12)
-    web = rng.integers(1, 65, (3, 61, 97)).astype(np.int32)
+    web = rng.integers(1, 65 if value_bound is None else value_bound, shape).astype(np.int32)
     web[rng.random(web.shape) < 0.4] = 0
     web_t = torch.from_numpy(web).to(cuda_device)
     before = fused_diffusion.fill_web_holes_range.launches
-    got = fused_diffusion.fill_web_holes_range(web_t, times)
+    got = fused_diffusion.fill_web_holes_range(web_t, times, value_bound)
     torch.cuda.synchronize()
-    # One diffuse_step launch per Jacobi step, then one image_range.
-    assert fused_diffusion.fill_web_holes_range.launches == before + max(times - 1, 0) + 1
+    assert (fused_diffusion.fill_web_holes_range.launches
+            == before + fused_diffusion.k2_plan(times, value_bound).launches)
     assert torch.equal(web_t.cpu(), torch.from_numpy(web))  # input untouched
     for a, b in zip(got, fused_diffusion.fill_web_holes_range_reference(web_t, times)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("times", [2, 17, 32, 100])
+def test_fill_web_holes_range_resumed_web_any_values(cuda_device, times):
+    """A web with no proven bound (negative, large, int32-extreme values,
+    as a resumed file may hold) runs on int32 storage and equals the
+    plain version, whose sums wrap as int32."""
+    rng = np.random.default_rng(13)
+    web = rng.integers(-(2**31), 2**31 - 1, (2, 70, 150), dtype=np.int64).astype(np.int32)
+    web[rng.random(web.shape) < 0.5] = 0
+    web[0, 0, :4] = [2**31 - 1, -(2**31), 2**31 - 1, 0]
+    web_t = torch.from_numpy(web).to(cuda_device)
+    assert fused_diffusion.k2_plan(times, None).storage_bytes == 4
+    got = fused_diffusion.fill_web_holes_range(web_t, times, None)
+    for a, b in zip(got, fused_diffusion.fill_web_holes_range_reference(web_t, times)):
+        assert torch.equal(a, b)
+    assert torch.equal(web_t.cpu(), torch.from_numpy(web))
+
+
+@pytest.mark.cuda
+def test_k2_mirrors_match_the_library(cuda_device):
+    """``K2_MAX_STEPS`` and ``k2_smem_bytes``, by which ``k2_plan``
+    counts launches, give the library's own figures."""
+    lib = fused_diffusion._lib("fill_web_holes")
+    for nbytes, steps in fused_diffusion.K2_MAX_STEPS.items():
+        assert lib.fill_web_holes_max_steps(nbytes) == steps
+        for h in range(steps + 1):
+            assert lib.fill_web_holes_smem_bytes(nbytes, h) == fused_diffusion.k2_smem_bytes(
+                nbytes, h)
+        assert fused_diffusion.k2_smem_bytes(nbytes, steps) <= 232448
 
 
 @pytest.mark.cuda
@@ -328,23 +370,85 @@ def test_box_route_refuses_pixels_k7_cannot_match(cuda_device, bad):
         assert torch.equal(got[k], v), k
 
 
+# K5 at 1 to 8 words a lane: D 1-64 at int16 (37 odd, read element by
+# element), 100 / 128 at 2 and 4, 256 at 4 (int16) and 8 (int32); W 45
+# below D from 64 up.
+K5_DISPARITIES = [1, 8, 11, 37, 64, 100, 128, 256]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", DISPARITIES)
+@pytest.mark.parametrize("route", ["segments", "wide"])
+@pytest.mark.parametrize("d", K5_DISPARITIES)
 @pytest.mark.parametrize("agg_dtype", [torch.int16, torch.int32])
 @pytest.mark.parametrize("shape", SGM_SHAPES)
-def test_sgm_tail_kernel_matches_plain(cuda_device, shape, agg_dtype, d):
+def test_sgm_tail_kernel_matches_plain(cuda_device, shape, agg_dtype, d, route):
+    """Both routes of K5, with and without uniqueness, on costs with ties
+    (0..59), one launch each; the aggregate is never written."""
     rng = np.random.default_rng(23)
     agg = torch.from_numpy(rng.integers(0, 60, (*shape, d)).astype(np.int32))
     agg = agg.to(agg_dtype).to(cuda_device)
+    copy = agg.clone()
+    assert fused_sgm.k5_route(agg.shape, agg.dtype) == "segments"  # small W
     for uniq in (False, True):
         before = fused_sgm.sgm_tail.launches
-        got = fused_sgm.sgm_tail(agg, uniq)
+        got = fused_sgm._tail_on_card(agg, uniq, route)
         torch.cuda.synchronize()
         assert fused_sgm.sgm_tail.launches == before + 1
         ref = fused_sgm.sgm_tail_reference(agg, uniq)
         assert len(got) == len(ref) == 4 + uniq
         for a, b in zip(got, ref):
             assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(agg, copy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["segments", "wide"])
+@pytest.mark.parametrize("d", [1, 3, 64, 256])
+@pytest.mark.parametrize("agg_dtype", [torch.int16, torch.int32])
+def test_sgm_tail_kernel_sentinels_and_signs(cuda_device, agg_dtype, d, route):
+    """K5 at the edges of its domain: negative int16 costs, int32 costs at
+    and past both sentinels (2^28 for the right view and the second best,
+    2^30 for the left view), pixels whose every cost is past them."""
+    rng = np.random.default_rng(24)
+    if agg_dtype == torch.int16:
+        vals = rng.integers(-32768, 32768, (2, 9, 70, d))
+    else:
+        pool = np.array([2**28 - 1, 2**28, 2**28 + 5, 2**30 - 1, 2**30, 2**30 + 3, 2**31 - 1,
+                         -(2**31), -5, 7])
+        vals = rng.choice(pool, (2, 9, 70, d))
+        vals[0, 0] = 2**30 + 9
+        vals[0, 1] = 2**28 + 1
+    agg = torch.from_numpy(vals.astype(np.int64)).to(agg_dtype).to(cuda_device)
+    for uniq in (False, True):
+        got = fused_sgm._tail_on_card(agg, uniq, route)
+        for a, b in zip(got, fused_sgm.sgm_tail_reference(agg, uniq)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sgm_tail_routes_at_the_bench_shape(cuda_device):
+    """``sgm_tail`` takes ``k5_route``'s route: the segments at the bench
+    instance (int16, D=64, 1024 columns), the wide kernel for int32 at
+    D=256; both equal the plain version."""
+    rng = np.random.default_rng(25)
+    for dtype, d, want in ((torch.int16, 64, "segments"), (torch.int32, 256, "wide")):
+        agg = torch.from_numpy(rng.integers(0, 3000, (1, 2, 1024, d)).astype(np.int32))
+        agg = agg.to(dtype).to(cuda_device)
+        assert fused_sgm.k5_route(agg.shape, dtype) == want
+        got = fused_sgm.sgm_tail(agg, True)
+        for a, b in zip(got, fused_sgm.sgm_tail_reference(agg, True)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k5_smem_mirror_matches_the_library(cuda_device):
+    """``k5_smem_bytes``, by which ``k5_route`` chooses, gives the
+    library's own figure (``sgm_tail_smem_bytes``)."""
+    lib = fused_sgm._lib("sgm_tail")
+    for esz in (2, 4):
+        for d in (1, 2, 37, 64, 100, 128, 255, 256, 257, 512):
+            for w in (1, 45, 127, 128, 129, 1024, 3840):
+                assert fused_sgm.k5_smem_bytes(esz, d, w) == lib.sgm_tail_smem_bytes(esz, d, w)
 
 
 @pytest.mark.cuda
@@ -613,7 +717,8 @@ def test_collect_pipeline_finishes_through_k2(cuda_device, mode):
     before = fused_diffusion.fill_web_holes_range.launches
     got = pipe(left.to(cuda_device), right.to(cuda_device))
     torch.cuda.synchronize()
-    assert fused_diffusion.fill_web_holes_range.launches == before + params.times
+    assert (fused_diffusion.fill_web_holes_range.launches
+            == before + fused_diffusion.k2_plan(params.times, params.num_shifts + 1).launches)
     ref = pipe(left, right)
     assert sorted(got) == sorted(ref)
     for k in ref:

@@ -83,6 +83,58 @@ def test_fill_web_holes_range_cpu_matches_jax(times):
     assert torch.equal(o2, out[1]) and mn2 == mn[1] and mx2 == mx[1]
 
 
+@pytest.mark.parametrize("times", [0, 1, 2, 33])
+@pytest.mark.parametrize("value_bound", [65, 256, None])
+def test_fill_web_holes_range_value_bound_cpu_matches_jax(value_bound, times):
+    """``value_bound`` (K2's storage on the card) leaves the function as it
+    is: the CPU route equals the JAX XLA ``fill_web_holes`` on webs within
+    the bound; with ``None`` also on negative and large values (a resumed
+    web)."""
+    rng = np.random.default_rng(6)
+    hi = 2**20 if value_bound is None else value_bound
+    web = rng.integers(0, hi, (2, 13, 29)).astype(np.int32)
+    web[rng.random(web.shape) < 0.4] = 0
+    if value_bound is None:
+        web[0, :3] = -rng.integers(1, 2**20, (3, 29))
+    out, mn, mx = fused_diffusion.fill_web_holes_range(torch.from_numpy(web), times, value_bound)
+    for i in range(2):
+        ref = np.asarray(j_fill_web_holes(jnp.asarray(web[i]), times))
+        assert np.array_equal(out[i].numpy(), ref)
+        assert mn[i].item() == ref.min() and mx[i].item() == ref.max()
+
+
+@pytest.mark.parametrize("value_bound, times, want", [
+    (1, 32, (1, 2, 31)), (65, 32, (1, 2, 31)), (255, 32, (1, 2, 31)), (256, 32, (1, 2, 31)),
+    (257, 32, (2, 1, 31)), (65535, 32, (2, 1, 31)), (65536, 32, (2, 1, 31)),
+    (65537, 32, (4, 2, 31)), (None, 32, (4, 2, 31)), (None, 17, (4, 1, 16)),
+    (None, 18, (4, 2, 17)), (65, 0, (1, 1, 0)), (65, 1, (1, 1, 0)), (65, 2, (1, 1, 1)),
+    (65, 17, (1, 1, 16)), (65, 18, (1, 2, 17)), (65, 33, (1, 2, 32)), (65, 34, (1, 3, 33)),
+    (65, 100, (1, 7, 99)), (65536, 100, (2, 4, 99)), (None, 100, (4, 7, 99)),
+])
+def test_k2_plan_at_its_edges(value_bound, times, want):
+    """K2's storage from the bound (1 byte up to 256, 2 up to 65536, else
+    int32) and its launches, ceil(steps / steps a launch), at least one."""
+    assert tuple(fused_diffusion.k2_plan(times, value_bound)) == want
+
+
+@pytest.mark.parametrize("bad", [0, -5, True])
+def test_k2_plan_refuses_bad_bounds(bad):
+    with pytest.raises(ValueError):
+        fused_diffusion.k2_plan(32, bad)
+    with pytest.raises(ValueError):
+        fused_diffusion.fill_web_holes_range(torch.zeros((4, 4), dtype=torch.int32), 3, bad)
+
+
+def test_k2_smem_fits_a_block_at_every_storage():
+    """Each storage's most steps a launch keep its two planes within a
+    block's shared memory (the C entry's figure, pinned on the card)."""
+    for nbytes, steps in fused_diffusion.K2_MAX_STEPS.items():
+        assert fused_diffusion.k2_smem_bytes(nbytes, steps) <= 232448
+    assert fused_diffusion.k2_smem_bytes(1, 16) == 2 * 160 * 168
+    assert fused_diffusion.k2_smem_bytes(2, 31) == 2 * 126 * 192 * 2
+    assert fused_diffusion.k2_smem_bytes(4, 0) == 2 * 64 * 64 * 4
+
+
 def test_wrappers_refuse_other_devices():
     params = params_from_jax(StereoParams(num_shifts=8, square_width=7, edge_rule="exact"))
     meta = torch.empty((1, 8, 8), device="meta")

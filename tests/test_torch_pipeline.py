@@ -158,6 +158,37 @@ def test_resume_across_packages(tmp_path):
     assert_artifacts_equal({k: port_arts[k] for k in jfin}, jfin)
 
 
+@pytest.mark.parametrize("rule", ["exact", "reference"])
+def test_classic_routes_pass_k2_their_bound(monkeypatch, rule):
+    """The forward and the collect pipeline hand K2 the winner plane's
+    proven bound ``num_shifts + 1`` (its values lie in [0, num_shifts]);
+    the resume path hands it ``None``, so a web read from a file runs on
+    int32 storage.  The artifacts equal the JAX XLA tier's either way."""
+    seen = []
+    real = classic.fill_web_holes_range
+
+    def spy(web, times, value_bound=None):
+        seen.append(value_bound)
+        if value_bound is not None:
+            assert 0 <= int(web.min()) and int(web.max()) < value_bound
+        return real(web, times, value_bound)
+
+    monkeypatch.setattr(classic, "fill_web_holes_range", spy)
+    params = params_for(BoundaryMode.GHOST, rule)
+    pp = interop.params_from_jax(params)
+    lu, ru = u8_batch(2)
+    left, right = torch.from_numpy(to_f32(lu)), torch.from_numpy(to_f32(ru))
+    arts = classic.build_classic_pipeline(pp)(left, right)
+    collect = classic.build_classic_collect_pipeline(pp)(left, right)
+    resumed = classic.build_classic_finish_pipeline(pp)(arts["web-1"])
+    assert seen == [pp.num_shifts + 1, pp.num_shifts + 1, None]
+    ref = jax.device_get(j_classic.classic_forward_batched(
+        jnp.asarray(to_f32(lu)), jnp.asarray(to_f32(ru)), params))
+    assert_artifacts_equal(arts, ref)
+    for k in resumed:
+        assert torch.equal(resumed[k], arts[k]) and torch.equal(collect[k], arts[k]), k
+
+
 def test_import_does_not_load_jax():
     """Importing every module of the port (and its lazy exports) loads
     neither jax nor any module of the JAX package."""

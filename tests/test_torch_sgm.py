@@ -355,6 +355,32 @@ def test_sgm_tail_plain_matches_jax(agg_dtype, with_uniqueness):
         assert torch.equal(a, b[1])
 
 
+@pytest.mark.parametrize("dtype, w, d, want", [
+    (torch.int16, 1024, 64, "segments"), (torch.int16, 1024, 256, "segments"),
+    (torch.int16, 1024, 257, "segments"), (torch.int16, 1024, 512, "wide"),
+    (torch.int16, 100, 512, "segments"), (torch.int16, 1, 513, "wide"),
+    (torch.int32, 1024, 64, "segments"), (torch.int32, 1024, 256, "wide"),
+    (torch.int32, 226, 256, "segments"), (torch.int32, 227, 256, "wide"),
+    (torch.int32, 1, 257, "wide"), (torch.int16, 1, 1, "segments"),
+])
+def test_k5_route_at_its_edges(dtype, w, d, want):
+    """K5's route from (dtype, D, W) alone: the segments while a lane holds
+    a pixel's run in at most 8 words (D 512 at int16, 256 at int32) and a
+    segment fits a block's 232448 bytes (int32, D=256: W up to 226)."""
+    assert fused_sgm.k5_route((2, 3, w, d), dtype) == want
+    assert fused_sgm.k5_route((3, w, d), dtype) == want  # batch dims do not count
+
+
+def test_k5_mirrors_at_known_shapes():
+    """K5's lane words and shared memory at the shapes the route rule is
+    read from (my arithmetic: the segment's pixels x D x bytes, whole
+    16-byte chunks, one chunk of slack)."""
+    assert [fused_sgm.k5_lane_words(2, d) for d in (1, 64, 65, 128, 129, 256, 512, 513)] == [
+        1, 1, 2, 2, 4, 4, 8, 16]
+    assert fused_sgm.k5_smem_bytes(2, 64, 1024) == 191 * 128 + 16
+    assert fused_sgm.k5_smem_bytes(2, 37, 45) == -(-45 * 74 // 16) * 16 + 16
+
+
 def test_wrappers_refuse_other_devices_and_bad_inputs():
     meta = torch.empty((1, 8, 8, 4), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError):

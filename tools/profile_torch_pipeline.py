@@ -17,6 +17,8 @@ uniqueness).
     python3 tools/profile_torch_pipeline.py --k8-against DIR  # K8 and K9 against others
     python3 tools/profile_torch_pipeline.py --k4-against DIR [DIR ...]  # K4 against others
     python3 tools/profile_torch_pipeline.py --k7-against DIR [DIR ...]  # K7 against others
+    python3 tools/profile_torch_pipeline.py --k5-against DIR [DIR ...]  # K5 against others
+    python3 tools/profile_torch_pipeline.py --k2-against DIR [DIR ...]  # K2 against others
 
 Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
@@ -112,6 +114,28 @@ each loop), and every kernel's registers and local memory.  A trial
 source with ``MIN_CENSUS_STRIP_WARPS = 1`` takes the census strips
 wherever they fit, so beside it the census instances show where the
 route rule's choice wins.
+
+With ``--k5-against DIR [DIR ...]`` (each ``DIR`` holds another
+``sgm_tail.cu``: the parent's, or a trial source) K5 against those
+versions in one process, at each instance of ``K5_SWEEP`` (random costs
+0..2999; int16 at D 64 with and without the second best, 128, 256, 37 and
+100; int32 at D 64 and 256; batch 8 up to D=64, nvox held from there):
+every library's planes compared bitwise with this one's, then timed in
+turns beside ``k5_bound_ms``, with the route ``k5_route`` takes; and each
+library's shared loads and stores, barriers, ``cp.async`` copies
+(``LDGSTS``), ``REDUX``, ``SHFL`` and all instructions per kernel and
+loop, and every kernel's registers.
+
+With ``--k2-against DIR [DIR ...]`` (the parent's ``fill_web_holes.cu``
+first, then any trial sources) K2 against those versions in one process:
+the parent's spread at the bench instance (its first call after loading,
+5 repeats of 10 launches, its three planes placed four ways, the clocks
+before and after), then at each instance of ``K2_SWEEP`` (times 32 with
+``value_bound`` 65 and ``None``, times 100, 16-bit cells, one 4K image)
+every library's web, min and max compared bitwise with this one's, then
+timed in turns beside ``k2_bound_ms``; and each library's SASS counts and
+registers.  ``nvidia-smi`` clocks, power and temperature are printed at
+the start and the end.
 
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
@@ -330,6 +354,7 @@ def main_modern(route: str) -> None:
 def classic_stages(params, lt, rt) -> dict:
     """The classic route's stages on the batch (lt, rt): name -> a
     callable running that stage alone."""
+    from stereomatching_tpu_torch.models.classic import winner_bound
     from stereomatching_tpu_torch.ops import fused, fused_diffusion
     from stereomatching_tpu_torch.ops.contour import contour_bands
     from stereomatching_tpu_torch.ops.edges import find_edges
@@ -344,9 +369,11 @@ def classic_stages(params, lt, rt) -> dict:
         stages["reference-rule edges x2 (torch)"] = lambda: [
             find_edges(x, params.threshold, params.mode, "reference") for x in (lt, rt)]
         stages["K8 match_and_score"] = lambda: fused.match_and_score(el, er, params)
-    web, mn, mx = fused_diffusion.fill_web_holes_range(winner, params.times)
-    stages[f"K2 fill_web_holes_range x{params.times}"] = (
-        lambda: fused_diffusion.fill_web_holes_range(winner, params.times))
+    bound = winner_bound(params)
+    web, mn, mx = fused_diffusion.fill_web_holes_range(winner, params.times, bound)
+    stages[f"K2 fill_web_holes_range times {params.times} "
+           f"({fused_diffusion.k2_plan(params.times, bound).launches} launches)"] = (
+        lambda: fused_diffusion.fill_web_holes_range(winner, params.times, bound))
     stages["contour (torch)"] = lambda: contour_bands(web, params.lines, mn, mx)
     return stages
 
@@ -961,6 +988,257 @@ def main_k7_against(src_dirs: list[Path]) -> None:
     print(f"[k7 against] this library: {_target('disparity').name}; card {smi}")
 
 
+def clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+# K5's timed instances: (dtype, D, uniqueness), each at 8 x 1024 x 1024
+# pixels scaled down by D / 64 from D=128 (nvox fixed at the bench
+# instance's).  The first two are the SGM and 8-direction routes' tails.
+K5_SWEEP = [("int16", 64, False), ("int16", 64, True), ("int32", 64, False),
+            ("int16", 128, False), ("int16", 256, False), ("int32", 256, False),
+            ("int16", 37, False), ("int16", 100, False)]
+K5_OPS = ("LDS", "STS", "BAR", "LDGSTS", "REDUX", "SHFL", "ALL")
+
+
+def main_k5_against(src_dirs: list[Path]) -> None:
+    """K5 against other ``sgm_tail.cu`` sources in one process: at each
+    instance of ``K5_SWEEP`` every library's planes (with and without
+    the second best) compared bitwise with this one's, then the call
+    timed in turns (the others, this, then the same in reverse) beside
+    ``k5_bound_ms``; then each library's SASS counts per kernel and
+    loop, and every kernel's registers and local memory.  A library
+    without ``sgm_tail_smem_bytes`` (the parent's) takes the C entry
+    without a route argument; this one takes ``k5_route``'s route."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from stereomatching_tpu_torch.ops import fused_sgm
+    from stereomatching_tpu_torch.utils.bench import k5_bound_ms
+    from stereomatching_tpu_torch.utils.build import _target, resource_usage
+
+    smi = card()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"clocks {clocks()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_libraries("sgm_tail", src_dirs, tmp)
+        fns = {}
+        for label, so in libs.items():
+            print_sass(label, so, K5_OPS)
+            print(f"[regs {label}] " + "; ".join(
+                f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
+                for m, r in resource_usage(so).items()), flush=True)
+            lib = ctypes.CDLL(str(so))
+            routed = hasattr(lib, "sgm_tail_smem_bytes")
+            lib.sgm_tail.argtypes = fused_sgm._SIGNATURES["sgm_tail"][:None if routed else -2] + [
+                ctypes.c_void_p] * (0 if routed else 1)
+            lib.sgm_tail.restype = ctypes.c_int
+            fns[label] = (lib.sgm_tail, routed)
+        others = [k for k in fns if k != "this"]
+        order = [*others, "this"]
+        order = order + order[::-1]
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for dtype_name, d, uniq in K5_SWEEP:
+            dtype = getattr(torch, dtype_name)
+            batch = max(1, 8 * 64 // max(d, 64))
+            agg = torch.randint(0, 3000, (batch, SIZE, SIZE, d), generator=gen, device=dev,
+                                dtype=torch.int32).to(dtype)
+            npix = batch * SIZE * SIZE
+            route = fused_sgm.k5_route(agg.shape, dtype)
+            outs = [torch.empty((batch, SIZE, SIZE), dtype=dt, device=dev)
+                    for dt in (torch.int32, torch.float32, torch.int32, torch.int32, torch.int32)]
+
+            def call(label):
+                fn, routed = fns[label]
+                extra = [int(route == "segments")] if routed else []
+                err = fn(agg.data_ptr(), agg.element_size(), *[o.data_ptr() for o in outs[:4]],
+                         outs[4].data_ptr() if uniq else None, batch, SIZE, SIZE, d, *extra,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"K5 {label} failed: CUDA error {err}")
+
+            call("this")
+            ref = [o.clone() for o in outs[:4 + uniq]]
+            for label in others:
+                call(label)
+                if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                           for a, b in zip(outs, ref)):
+                    sys.exit(f"K5 {label} differs from this at {dtype_name} D {d} uniq {uniq}")
+            del ref
+            times = time_in_turns(order, lambda label: (lambda: call(label)), 10)
+            b = k5_bound_ms(npix, d, agg.element_size(), uniq)
+            print(f"[k5 instance] {dtype_name} D {d} uniqueness {uniq}, {batch}x{SIZE}x{SIZE}, "
+                  f"planes equal; this: {route}; bound {b[0]:.4f} ms ({b[1]}); ms per call "
+                  + turns_text(times), flush=True)
+            del agg, outs
+    print(f"[k5 against] this library: {_target('sgm_tail').name}; card {smi}; "
+          f"clocks {clocks()}")
+
+
+# K2's timed instances: (batch, H, W, times, value_bound).  The first is
+# the classic pipeline's (bench.py's first line: times 32, 64 shifts); the
+# others: a resumed web (no bound, int32 storage), chained launches
+# (times 100), 16-bit storage, and one 4K image.
+K2_SWEEP = [(8, 1024, 1024, 32, 65), (8, 1024, 1024, 32, None), (8, 1024, 1024, 100, 65),
+            (8, 1024, 1024, 32, 65536), (1, 2160, 3840, 32, 65)]
+K2_OPS = ("LDS", "STS", "BAR", "LDG", "STG", "ALL")
+
+
+def main_k2_against(src_dirs: list[Path]) -> None:
+    """K2 against other ``fill_web_holes.cu`` sources in one process.
+    First the spread of the parent's K2 (the first library given) at the
+    bench instance: its first launch after the build, 5 repeats of 10
+    launches, and the same on its three int32 planes placed four ways
+    (separate allocations, one buffer back to back, one buffer with 1 MB
+    + 4 KB between planes, fresh allocations), each with the planes'
+    addresses, and the clocks before and after.  Then at each instance of
+    ``K2_SWEEP`` every library's web, min and max compared bitwise with
+    this one's, then the call timed in turns (the others, this, then the
+    same in reverse) beside ``k2_bound_ms``; this one's 5 repeats at the
+    bench instance; each library's SASS counts and registers.  A library
+    without ``fill_web_holes_max_steps`` (the parent's) takes the C entry
+    of one launch per step and two int32 scratch planes."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch.ops import fused_diffusion
+    from stereomatching_tpu_torch.utils.bench import k2_bound_ms
+    from stereomatching_tpu_torch.utils.build import _target, resource_usage
+
+    smi = card()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"clocks (sm, mem, power, temp) {clocks()}", flush=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_libraries("fill_web_holes", src_dirs, tmp)
+        fns = {}
+        for label, so in libs.items():
+            print_sass(label, so, K2_OPS)
+            print(f"[regs {label}] " + "; ".join(
+                f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
+                for m, r in resource_usage(so).items()), flush=True)
+            lib = ctypes.CDLL(str(so))
+            fused = hasattr(lib, "fill_web_holes_max_steps")
+            lib.fill_web_holes_range.argtypes = (
+                [P] * 5 + [I] * 5 + [P] if fused else [P] * 6 + [I] * 4 + [P])
+            lib.fill_web_holes_range.restype = I
+            fns[label] = (lib.fill_web_holes_range, fused)
+        others = [k for k in fns if k != "this"]
+        parent = others[0]
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(SEED)
+
+        def make_web(b, h, w, vb):
+            web = rng.integers(1, 65 if vb is None else min(vb, 2**31 - 1), (b, h, w))
+            web[rng.random(web.shape) < 0.4] = 0
+            return torch.from_numpy(web.astype(np.int32)).to(dev)
+
+        def caller(label, web, times, vb, planes=None):
+            """-> (launch, out, mn, mx): one call of ``label``'s C entry
+            on preallocated buffers (``planes``: the parent's out and two
+            scratch planes, if given)."""
+            fn, fused = fns[label]
+            b, h, w = web.shape
+            mn = torch.empty(b, dtype=torch.int32, device=dev)
+            mx = torch.empty_like(mn)
+            stream = torch.cuda.current_stream().cuda_stream
+            if fused:
+                plan = fused_diffusion.k2_plan(times, vb)
+                out = torch.empty_like(web)
+                scratch = torch.empty((4, b, h, w), dtype=fused_diffusion.K2_STORAGE[
+                    plan.storage_bytes], device=dev) if plan.launches > 1 else None
+                args = (web.data_ptr(), out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), mn.data_ptr(),
+                        mx.data_ptr(), b, h, w, times, plan.storage_bytes, stream)
+            else:
+                out, s0, s1 = planes or [torch.empty_like(web) for _ in range(3)]
+                args = (web.data_ptr(), out.data_ptr(), s0.data_ptr(), s1.data_ptr(),
+                        mn.data_ptr(), mx.data_ptr(), b, h, w, times, stream)
+
+            held = [web, out, scratch] if fused else [web, out, s0, s1]  # alive while launched
+
+            def launch():
+                mn.fill_(2**31 - 1)
+                mx.fill_(-(2**31))
+                err = fn(*args)
+                if err:
+                    raise RuntimeError(f"K2 {label} failed: CUDA error {err}")
+            launch.held = held
+            return launch, out, mn, mx
+
+        # The parent's spread at the bench instance.
+        web = make_web(8, SIZE, SIZE, 65)
+        for label in (parent, "this"):
+            launch = caller(label, web, 32, 65)[0]
+            torch.cuda.synchronize()
+            print(f"[k2 first launch] {label}: {event_ms(launch, 1):.4f} ms (the first call "
+                  f"after loading the library), then {event_ms(launch, 1):.4f}", flush=True)
+        launch = caller(parent, web, 32, 65)[0]
+        reps = [event_ms(launch, 10) for _ in range(5)]
+        print(f"[k2 spread] {parent} 5 x 10 launches: "
+              + ", ".join(f"{r:.4f}" for r in reps) + f" ms; clocks {clocks()}", flush=True)
+        n = web.numel()
+        big = torch.empty(3 * n + 2 * (2**18 + 2**10), dtype=torch.int32, device=dev)
+        gap = 2**18 + 2**10  # 1 MB + 4 KB of int32
+        placements = {
+            "separate": [torch.empty_like(web) for _ in range(3)],
+            "back to back": [big[i * n:(i + 1) * n].view_as(web) for i in range(3)],
+            "1 MB + 4 KB apart": [big[i * (n + gap):i * (n + gap) + n].view_as(web)
+                                  for i in range(3)],
+        }
+        placements["fresh"] = None
+        for name, planes in placements.items():
+            if planes is None:
+                planes = [torch.empty_like(web) for _ in range(3)]
+            launch = caller(parent, web, 32, 65, planes)[0]
+            launch()
+            reps = [event_ms(launch, 10) for _ in range(3)]
+            print(f"[k2 placement] {parent} planes {name} at "
+                  + ", ".join(f"{t.data_ptr():#x}" for t in planes) + ": "
+                  + ", ".join(f"{r:.4f}" for r in reps) + " ms", flush=True)
+        del big, placements
+
+        order = [*others, "this"]
+        order = order + order[::-1]
+        for b, h, w, times, vb in K2_SWEEP:
+            web = make_web(b, h, w, vb)
+            runs = {label: caller(label, web, times, vb) for label in fns}
+            runs["this"][0]()
+            ref = [x.clone() for x in runs["this"][1:]]
+            for label in others:
+                runs[label][0]()
+                if not all(torch.equal(x, y) for x, y in zip(runs[label][1:], ref)):
+                    plain = fused_diffusion.fill_web_holes_range_reference(web, times)
+                    agree = {lab: all(torch.equal(x, y) for x, y in zip(got, plain))
+                             for lab, got in ((label, runs[label][1:]), ("this", ref))}
+                    sys.exit(f"K2 {label} differs from this at {b}x{h}x{w} times {times} "
+                             f"value_bound {vb}; equal to the plain version: {agree}")
+            times_ms = time_in_turns(order, lambda label: runs[label][0], 10)
+            plan = fused_diffusion.k2_plan(times, vb)
+            bd = k2_bound_ms(b * h * w, times)
+            print(f"[k2 instance] {b}x{h}x{w} times {times} value_bound {vb}: web, min, max "
+                  f"equal; this: {plan.storage_bytes}-byte cells, {plan.launches} launch(es); "
+                  f"bound {bd[0]:.4f} ms ({bd[1]}); ms per call " + turns_text(times_ms),
+                  flush=True)
+            if (b, h, w, times, vb) == K2_SWEEP[0]:
+                reps = [event_ms(runs["this"][0], 10) for _ in range(5)]
+                print(f"[k2 spread] this 5 x 10 launches: "
+                      + ", ".join(f"{r:.4f}" for r in reps) + " ms", flush=True)
+            del runs, ref, web
+    print(f"[k2 against] this library: {_target('fill_web_holes').name}; card {smi}; "
+          f"clocks (sm, mem, power, temp) {clocks()}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pipeline", choices=("classic", "reference", *MODERN),
@@ -975,6 +1253,10 @@ def main() -> None:
                         help="time K4 against the sgm_directional.cu in each DIR")
     parser.add_argument("--k7-against", metavar="DIR", type=Path, nargs="+",
                         help="time K7 against the disparity.cu in each DIR")
+    parser.add_argument("--k5-against", metavar="DIR", type=Path, nargs="+",
+                        help="time K5 against the sgm_tail.cu in each DIR")
+    parser.add_argument("--k2-against", metavar="DIR", type=Path, nargs="+",
+                        help="time K2 against the fill_web_holes.cu in each DIR (the parent's first)")
     args = parser.parse_args()
     import torch
 
@@ -989,6 +1271,10 @@ def main() -> None:
         main_k4_against([d.resolve() for d in args.k4_against])
     elif args.k7_against:
         main_k7_against([d.resolve() for d in args.k7_against])
+    elif args.k5_against:
+        main_k5_against([d.resolve() for d in args.k5_against])
+    elif args.k2_against:
+        main_k2_against([d.resolve() for d in args.k2_against])
     elif args.mesh:
         data, rows = (int(x) for x in args.mesh.split("x"))
         main_sharded(args.pipeline, data, rows)
