@@ -30,8 +30,11 @@ and K4's global loads, stores, REDUX, SHFL and instructions per loop in
 SASS (``k1_sass``, ``k8_sass``, ``k4_sass`` lines);
 K7's shared-memory loads and stores, barriers, shuffles and instructions
 per loop in the SASS of its SAD kernels at D=64, with every K7 kernel's
-registers (``k7_sass``), and K7's time over its sweep of windows, D and
-costs beside each instance's bound (``k7_instances``).
+registers (``k7_sass``); K5's segment kernels and K2's fused kernel
+(``k5_sass``, ``k2_sass``); K6's fused kernel and K3's staged int8 census
+kernels, K3's per element (``k6_sass``, ``k3_sass``); and K7's time over
+its sweep of windows, D and costs beside each instance's bound
+(``k7_instances``).
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -198,10 +201,10 @@ def main() -> None:
         costvolume, fused, fused_diffusion, fused_modern, fused_sgm, sgm)
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
     from stereomatching_tpu_torch.utils.bench import (
-        HBM_BYTES_PER_S, INT32_OPS_PER_S, K2_BENCH_KERNELS, K5_BENCH_KERNELS,
+        HBM_BYTES_PER_S, INT32_OPS_PER_S, K2_BENCH_KERNELS, K3_BENCH_KERNELS, K5_BENCH_KERNELS,
         K7_BENCH_KERNELS, K7_SWEEP, bound, k1_bound_ms,
-        k2_bound_ms, k3_bound_ms, k5_bound_ms, k6_bound_ms, k7_bound_ms, k8_bound_ms,
-        k9_bound_ms)
+        k2_bound_ms, k3_bound_ms, k5_bound_ms, k6_bound_ms, k6_filled, k7_bound_ms,
+        k8_bound_ms, k9_bound_ms)
     from stereomatching_tpu_torch.utils.build import build_all
 
     dev = torch.device("cuda", 0)
@@ -391,15 +394,34 @@ def main() -> None:
                     hold("sgm_tail", a, b, f"{cost} {route} uniqueness={uniq} {what}")
         tail = fused_sgm.sgm_tail(agg, True)
         valid = costvolume.lr_consistency(tail[0], tail[3], 1, SHIFTS)
-        hold("fill_invalid", fused_diffusion.fill_invalid(tail[1], valid, 16),
-             fused_diffusion.fill_invalid_reference(tail[1], valid, 16), f"{cost} fill")
+        # K6 in one launch (16 sweeps) and chained (100 sweeps: 7 launches).
+        for iters in (16, 100):
+            hold("fill_invalid", fused_diffusion.fill_invalid(tail[1], valid, iters),
+                 fused_diffusion.fill_invalid_reference(tail[1], valid, iters),
+                 f"{cost} fill, {iters} sweeps")
         torch.cuda.synchronize()
         notes.append(f"{cost}: {str(vdtype).split('.')[-1]} volume, int16 aggregate, "
                      f"{float(valid.float().mean()):.2%} LR-valid")
         del agg, tail, tail_ref, valid, pix, codes
+    # K3 on its other routes: D 37 at int8 and D 100 at int16 (vectors
+    # that span pixels) and 2 x 64 x 1021 at D 37 int8 (rows of W * D bytes
+    # that are not whole vectors: the element kernel), census codes over
+    # all 32 bits.
+    k3_routes = {}
+    for shape, d, vdtype in (((4, SIZE, SIZE), 37, torch.int8), ((2, 64, 1021), 37, torch.int8),
+                             ((2, 64, SIZE), 100, torch.int16)):
+        codes = [torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                                  .astype(np.int32)).to(dev) for _ in range(2)]
+        route = fused_sgm.k3_route((*shape, d), vdtype)
+        hold("sgm_volume", fused_sgm.sgm_volume(*codes, d, "census", vdtype),
+             fused_sgm.sgm_volume_reference(*codes, d, "census", vdtype),
+             f"census volume {shape} D {d} ({route})")
+        k3_routes[f"{'x'.join(map(str, shape))} D {d} {str(vdtype).split('.')[-1]}"] = route
+    del codes
+    notes.append(f"K3 routes {k3_routes}")
     print(f"[7 K3-K6] 4x{SIZE}x{SIZE}, D={SHIFTS}: volume, each path and the 4-path "
-          f"sum, tail on both routes with and without the second best, fill == plain "
-          f"bitwise ({'; '.join(notes)}; "
+          f"sum, tail on both routes with and without the second best, fill at 16 and "
+          f"100 sweeps == plain bitwise ({'; '.join(notes)}; "
           f"max |d| {errs})", flush=True)
 
     # Phase 8: the SGM slice through ModernMatcher (bench.py's SGM params:
@@ -421,6 +443,8 @@ def main() -> None:
     launches.update({name: fn.launches for name, fn in sgm_wrappers.items()})
     for name in sgm_wrappers:
         check(launches[name] > 0, f"the SGM path never launched {name}")
+    check(launches["fill_invalid"] == fused_diffusion.k6_plan(mparams.fill_iterations).launches,
+          f"K6 launches {launches['fill_invalid']} on the SGM slice")
     lt = torch.from_numpy(left_u8).to(dev).to(torch.int32)
     rt = torch.from_numpy(right_u8).to(dev).to(torch.int32)
     plain = {k: v.cpu() for k, v in modern.modern_forward_reference(lt, rt, mparams).items()}
@@ -460,6 +484,16 @@ def main() -> None:
     agg = fused_sgm.sgm_aggregate_paths(vol, 8, 96, odt)
     tail = fused_sgm.sgm_tail(agg)
     sub, valid = tail[1], costvolume.lr_consistency(tail[0], tail[3], 1, SHIFTS)
+    # The two kernels redesigned last, on the route's own inputs (the
+    # slice's census codes, its LR-valid plane), against their plain
+    # versions before they are timed.
+    hold("sgm_volume", vol, fused_sgm.sgm_volume_reference(*codes, SHIFTS, "census", st),
+         "census volume of the SGM slice")
+    hold("fill_invalid", fused_diffusion.fill_invalid(sub, valid, mparams.fill_iterations),
+         fused_diffusion.fill_invalid_reference(sub, valid, mparams.fill_iterations),
+         "fill of the SGM slice")
+    k3_route_taken = fused_sgm.k3_route(vol.shape, st)
+    k6_plan = fused_diffusion.k6_plan(mparams.fill_iterations)
     ms = {
         "sgm_volume": (cuda_time_ms(lambda: fused_sgm.sgm_volume(*codes, SHIFTS, "census", st), 5),
                        cuda_time_ms(lambda: fused_sgm.sgm_volume_reference(
@@ -481,7 +515,7 @@ def main() -> None:
         "sgm_volume": k3_bound_ms(npix, SHIFTS, vb, "census"),
         "sgm_directional": bound((vb + ab) * nvox, 4 * 9 * nvox, INT32_OPS_PER_S),
         "sgm_tail": k5_bound_ms(npix, SHIFTS, ab),
-        "fill_invalid": k6_bound_ms(npix, 16),
+        "fill_invalid": k6_bound_ms(npix, k6_filled(valid, 16)),
     }
     # K5 with the second best (the 8-direction route's tail).
     k5u_ms = cuda_time_ms(lambda: fused_sgm.sgm_tail(agg, True), 5)
@@ -505,7 +539,8 @@ def main() -> None:
           + "; ".join(f"{k} {a:.4f} ms vs plain {b:.4f} ms (bound {bounds[k][0]:.4f})"
                       for k, (a, b) in ms.items())
           + f"; sgm_tail with the second best {k5u_ms:.4f} ms (bound {k5u_bound[0]:.4f})"
-          + f" (per batch of {BATCH})", flush=True)
+          + f" (per batch of {BATCH}); K3 route {k3_route_taken}; K6 plan {tuple(k6_plan)} "
+          f"(bytes a staged cell, launches, sweeps a launch)", flush=True)
 
     del big, pipe
 
@@ -597,7 +632,7 @@ def main() -> None:
     out, box_counts, truth = drive(bmatcher, bparams, keys, BOX_TRUTH_SHARE,
                                    SHIFTS + bparams.window // 2, "box slice")
     want = {"disparity": 2, "sgm_volume": 0, "sgm_directional": 0, "sgm_tail": 0,
-            "fill_invalid": 16}
+            "fill_invalid": fused_diffusion.k6_plan(16).launches}
     check(box_counts == want, f"box slice kernel launches {box_counts}, want {want}")
     launches["disparity"] = box_counts["disparity"]
     print(f"[12 box slice] ModernMatcher() = (SAD, window 9, D={SHIFTS}, diffusion fill) on "
@@ -612,7 +647,7 @@ def main() -> None:
     out, q_counts, truth = drive(qmatcher, qparams, keys + ["uniqueness"], SGM8_TRUTH_SHARE,
                                  SHIFTS, "8-direction slice")
     want = {"disparity": 0, "sgm_volume": 1, "sgm_directional": 8, "sgm_tail": 1,
-            "fill_invalid": 16}
+            "fill_invalid": fused_diffusion.k6_plan(16).launches}
     check(q_counts == want, f"8-direction slice kernel launches {q_counts}, want {want}")
     check((out["uniqueness"] >= 1.0).all(), "uniqueness below 1")
     print(f"[13 8-direction slice] ModernMatcher(census, 8 paths, median, uniqueness, "
@@ -865,7 +900,7 @@ def main() -> None:
     s2pipe(*pix)
     s2_counts = {name: fn.launches for name, fn in all_wrappers.items()}
     want = {"disparity": 0, "sgm_volume": 0, "sgm_directional": 4, "sgm_tail": 1,
-            "fill_invalid": 16}
+            "fill_invalid": fused_diffusion.k6_plan(16).launches}
     check(s2_counts == want, f"scales=2 SGM kernel launches {s2_counts}, want {want}")
     s2_ms = cuda_time_ms(lambda: s2pipe(*pix), 3) / BATCH
     s2_plain_ms = cuda_time_ms(lambda: modern.modern_forward_reference(*pix, s2params), 1) / BATCH
@@ -1317,6 +1352,42 @@ def main() -> None:
                       f"K5 {name}: not one staged pass ({c['total']})")
         print(json.dumps({key: counts, key.replace("sass", "registers"): regs}), flush=True)
 
+    # K6's fused kernel and K3's staged kernels at int8 census (the SGM
+    # bench instance's pixels route and the vectors route): shared loads
+    # and stores, global stores, population counts, MUFU (the reciprocal of
+    # an integer division) and all instructions per kernel and loop, and
+    # their registers; K3's per element in each loop with a store (its
+    # STG count x 16 elements).  K3's pixel loop divides nothing, and its
+    # vector loop at most once a vector.
+    k6_lib = _target("fill_invalid")
+    k6_sass = {kernel_name(name): {"total": c["total"], "loops": [
+        {"start": a, "end": b, **cnt} for a, b, cnt in c["loops"]]}
+        for name, c in sass_counts(k6_lib, ("LDS", "STS", "BAR", "LDG", "STG", "ALL")).items()
+        if "fused_kernel" in name}
+    k6_regs = {m: r["REG"] for m, r in resource_usage(k6_lib).items()}
+    check(len(k6_sass) == 1, f"K6's fused kernel in SASS: {list(k6_sass)}")
+    print(json.dumps({"k6_sass": k6_sass, "k6_registers": k6_regs}), flush=True)
+    k3_lib = _target("sgm_volume")
+    k3_sass = {}
+    for name, c in sass_counts(k3_lib, ("LDS", "STS", "STG", "POPC", "MUFU", "ALL")).items():
+        if not K3_BENCH_KERNELS.search(name):
+            continue
+        loops = [{"start": a, "end": b, **cnt,
+                  "per_element": {op: cnt[op] / (16 * cnt["STG"]) for op in cnt} if cnt["STG"]
+                  else None} for a, b, cnt in c["loops"]]
+        k3_sass[kernel_name(name)] = {"total": c["total"], "loops": loops}
+        for loop in loops:
+            if loop["STG"]:
+                most = 0 if "pixel_kernel" in name else loop["STG"]
+                check(loop["MUFU"] <= most, f"K3 {name}: {loop['MUFU']} MUFU in a loop of "
+                      f"{loop['STG']} vector stores")
+    k3_regs = {m: r["REG"] for m, r in resource_usage(k3_lib).items()
+               if K3_BENCH_KERNELS.search(m)}
+    check(len(k3_sass) == 2 and all(any(loop["STG"] for loop in c["loops"])
+                                    for c in k3_sass.values()),
+          f"K3's staged int8 census kernels in SASS: {list(k3_sass)}")
+    print(json.dumps({"k3_sass": k3_sass, "k3_registers": k3_regs}), flush=True)
+
     # K7 over the sweep of tools/profile_torch_pipeline.py (8 random
     # 1024x1024 pairs, the left view): each instance's kernel, time and
     # bound.  Census codes are those of the 5x5 transform (24 bits).
@@ -1386,6 +1457,8 @@ def main() -> None:
     # route the bench instance takes.
     table[4].update({"route_taken": "segments", "ms_uniqueness": k5u_ms,
                      "bound_ms_uniqueness": k5u_bound[0], "bound_by_uniqueness": k5u_bound[1]})
+    # K3's route at the SGM slice's shapes.
+    table[2].update({"route_taken": k3_route_taken})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

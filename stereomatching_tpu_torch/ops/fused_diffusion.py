@@ -17,8 +17,10 @@ launches the C entry issues: for K2 one ``fused_kernel`` per
 ``K2_MAX_STEPS`` Jacobi steps of its storage, each image's min and max
 folded into the last, ``k2_plan(times, value_bound).launches`` per call
 (1 up to 17 times at byte and int32 storage, 32 at 16-bit; 2 at the
-classic pipeline's 32); for K6 one ``fill_step`` per
-sweep, ``iterations`` per call; one per call for the two step wrappers.
+classic pipeline's 32); for K6 one ``fused_kernel`` per ``K6_MAX_SWEEPS``
+sweeps, ``k6_plan(iterations).launches`` per call (1 up to 16 sweeps, the
+modern pipeline's default; none at 0); one per call for the two step
+wrappers.
 """
 
 from __future__ import annotations
@@ -121,6 +123,11 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.fill_web_holes_max_steps.restype = ctypes.c_int
         lib.fill_web_holes_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.fill_web_holes_smem_bytes.restype = ctypes.c_longlong
+    else:
+        lib.fill_invalid_max_sweeps.argtypes = []
+        lib.fill_invalid_max_sweeps.restype = ctypes.c_int
+        lib.fill_invalid_smem_bytes.argtypes = [ctypes.c_int]
+        lib.fill_invalid_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -178,6 +185,44 @@ def fill_web_holes_range(
 fill_web_holes_range.launches = 0
 
 
+# K6's layout (``csrc/fill_invalid.cu``): a float d and a state byte per
+# staged cell; the most sweeps one launch runs (its halo; the C entry
+# ``fill_invalid_max_sweeps``); its tile (rows, columns).
+K6_STORAGE_BYTES = 5
+K6_MAX_SWEEPS = 16
+K6_TILE = (64, 64)
+
+
+class K6Plan(NamedTuple):
+    """K6's bytes per staged cell, its launches and the sweeps of its
+    first (longest) launch."""
+
+    storage_bytes: int
+    launches: int
+    sweeps: int
+
+
+def k6_plan(iterations: int) -> K6Plan:
+    """K6's plan for ``iterations`` sweeps: ``ceil(iterations /
+    K6_MAX_SWEEPS)`` launches (none at 0), the sweeps split evenly, the
+    first launch taking the remainder's extra sweep.  Chosen before any
+    launch from ``iterations`` alone."""
+    if iterations < 0:
+        raise ValueError("iterations must be >= 0")
+    launches = -(-iterations // K6_MAX_SWEEPS)
+    return K6Plan(K6_STORAGE_BYTES, launches, -(-iterations // launches) if launches else 0)
+
+
+def k6_smem_bytes(sweeps: int) -> int:
+    """Dynamic shared memory of a K6 launch running ``sweeps`` sweeps:
+    ``K6_STORAGE_BYTES`` for each cell of its tile with a halo of
+    ``sweeps`` rows and ``sweeps + 3`` columns rounded to whole words (the
+    C entry ``fill_invalid_smem_bytes``, which a CUDA test pins)."""
+    th, tw = K6_TILE
+    hc = (sweeps + 3 + 3) // 4 * 4
+    return K6_STORAGE_BYTES * (th + 2 * sweeps) * (tw + 2 * hc)
+
+
 def fill_invalid_reference(
     disparity: torch.Tensor, valid: torch.Tensor, iterations: int
 ) -> torch.Tensor:
@@ -194,26 +239,29 @@ def _launch_fill_invalid(disparity: torch.Tensor, valid: torch.Tensor, iteration
         raise ValueError("need float32 disparity and bool validity")
     if not (disparity.is_contiguous() and valid.is_contiguous()):
         raise ValueError("disparity and validity must be contiguous")
-    if iterations == 0:
+    plan = k6_plan(iterations)
+    if plan.launches == 0:
         return disparity.clone()
     squeeze = disparity.ndim == 2
     if squeeze:
         disparity, valid = disparity[None], valid[None]
     bsz, h, w = disparity.shape
     out = torch.empty_like(disparity)
-    # The C side ping-pongs d between `out` and a float scratch plane and
-    # v between two byte planes; the inputs are never written.
-    scratch = [torch.empty_like(disparity)] + [
-        torch.empty_like(valid, dtype=torch.uint8) for _ in range(2)]
+    # Between chained launches d and v in device memory: d alternates
+    # between `out` and a float plane, v between two byte planes (the
+    # second from three launches); the inputs are never written.
+    n = plan.launches
+    scratch = [torch.empty_like(disparity) if n > 1 else None] + [
+        torch.empty_like(valid, dtype=torch.uint8) if n > k else None for k in (1, 2)]
     with torch.cuda.device(disparity.device):
         err = _lib("fill_invalid").fill_invalid(
             disparity.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            *[t.data_ptr() for t in scratch],
+            *[None if t is None else t.data_ptr() for t in scratch],
             bsz, h, w, iterations, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"fill_invalid kernel launch failed: CUDA error {err}")
-    fill_invalid.launches += iterations
+    fill_invalid.launches += n
     return out[0] if squeeze else out
 
 
@@ -223,7 +271,7 @@ def fill_invalid(
     """Validity-aware hole fill: float32 disparity and bool validity,
     [H, W] or [B, H, W] -> float32 of the same shape after
     ``iterations`` Jacobi sweeps.  CPU tensors run the plain version,
-    CUDA tensors K6."""
+    CUDA tensors K6 in ``k6_plan(iterations).launches`` launches."""
     if iterations < 0:
         raise ValueError("iterations must be >= 0")
     devs = {disparity.device.type, valid.device.type}

@@ -2,7 +2,7 @@
 ``stereomatching_tpu/ops/fused_sgm.py``):
 
 * ``sgm_volume`` (K3, ``csrc/sgm_volume.cu``): the per-pixel census or
-  SAD cost volume [B, H, W, D];
+  SAD cost volume [B, H, W, D], on ``k3_route``'s route;
 * ``sgm_directional`` (K4, ``csrc/sgm_directional.cu``): one SGM path
   (a row, column or diagonal walk), written or added into the aggregate,
   a column or diagonal walk optionally seeded by the previous row shard's
@@ -37,7 +37,7 @@ MAX_DISPARITIES = 256  # K4 keeps at most 8 disparities per lane
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sgm_volume": [_P, _P, _P] + [_I] * 6 + [_P],
+    "sgm_volume": [_P, _P, _P] + [_I] * 7 + [_P],
     "sgm_directional": [_P, _I, _P] + [_I] * 10 + [_P, _P, _P],
     "sgm_tail": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
 }
@@ -54,6 +54,9 @@ def _lib(name: str) -> ctypes.CDLL:
     if name == "sgm_tail":
         lib.sgm_tail_smem_bytes.argtypes = [_I] * 3
         lib.sgm_tail_smem_bytes.restype = ctypes.c_longlong
+    if name == "sgm_volume":
+        lib.sgm_volume_route.argtypes = [_I] * 3
+        lib.sgm_volume_route.restype = _I
     return lib
 
 
@@ -115,13 +118,47 @@ def sgm_volume_reference(
     return vol.movedim(0, -1).contiguous()
 
 
+# K3's routes (``csrc/sgm_volume.cu``): a block stages a segment of
+# K3_SEG_PX pixels of a row (L, and R from D - 1 columns to its left) in
+# at most K3_SMEM_LIMIT bytes of shared memory, then writes 16-byte
+# vectors of costs.
+K3_SEG_PX = 256
+K3_SMEM_LIMIT = 48 * 1024
+K3_ROUTES = ("elements", "vectors", "pixels")  # the C entry's numbering
+
+
+def k3_smem_bytes(d: int) -> int:
+    """Shared memory of K3's staged block at ``d`` disparities: int32 L
+    of a segment and R of the segment plus the D - 1 columns it reaches."""
+    return 4 * (2 * K3_SEG_PX + d - 1)
+
+
+def k3_route(shape, dtype: torch.dtype) -> str:
+    """K3's route for a volume of ``shape`` [..., H, W, D] and ``dtype``
+    (int8, int16, int32), chosen before launch from (W, D, dtype) alone
+    (the C entry ``sgm_volume_route``, which a CUDA test pins): "pixels"
+    where d is a multiple of 32 (no vector spans pixels, and a warp's
+    shared loads meet no bank twice), "vectors" where a row's w * d costs
+    fill whole 16-byte vectors (a vector may span pixels), "elements"
+    for the rest and wherever the staged segment passes
+    ``K3_SMEM_LIMIT``."""
+    w, d = int(shape[-2]), int(shape[-1])
+    esz = torch.empty((), dtype=dtype).element_size()
+    if k3_smem_bytes(d) > K3_SMEM_LIMIT:
+        return "elements"
+    if d % 32 == 0:
+        return "pixels"
+    return "vectors" if w * d * esz % 16 == 0 else "elements"
+
+
 def sgm_volume(
     ref: torch.Tensor, other: torch.Tensor, num_disparities: int,
     cost: str = "census", dtype: torch.dtype = torch.int32,
 ) -> torch.Tensor:
     """Per-pixel cost volume [..., H, W] x 2 -> [..., H, W, D] in
     ``dtype`` (int8, int16 or int32; the caller picks one that holds
-    every cost).  CPU tensors run the plain version, CUDA tensors K3."""
+    every cost).  CPU tensors run the plain version, CUDA tensors K3 on
+    ``k3_route``'s route (one launch either way)."""
     if cost not in ("census", "sad"):
         raise ValueError("cost must be 'census' or 'sad'")
     if dtype not in _VOL_DTYPES:
@@ -142,7 +179,7 @@ def sgm_volume(
     vol = torch.empty((b, h, w, num_disparities), dtype=dtype, device=ref.device)
     _launch("sgm_volume", ref.device, ref.data_ptr(), other.data_ptr(),
             vol.data_ptr(), b, h, w, num_disparities, int(cost == "census"),
-            vol.element_size())
+            vol.element_size(), K3_ROUTES.index(k3_route(vol.shape, dtype)))
     sgm_volume.launches += 1
     return vol[0] if squeeze else vol
 

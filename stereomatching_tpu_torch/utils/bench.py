@@ -12,11 +12,14 @@ import re
 # compares per SM per clock = 16.7 T int32 ops/s; 16 population counts per
 # SM per clock (CUDA C++ Programming Guide, throughput of native arithmetic
 # instructions, compute capability 9.0); 67 TFLOP/s float32 outside the
-# tensor cores.
+# tensor cores, which counts a fused multiply-add as two operations (132
+# SMs x 128 lanes x 1.98 GHz x 2); adds, multiplies and divide steps that
+# may not be contracted issue at half that, one per lane and clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 POPC_PER_S = 132 * 16 * 1.98e9
 FP32_OPS_PER_S = 67e12
+FP32_UNFUSED_OPS_PER_S = 132 * 128 * 1.98e9
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -45,12 +48,14 @@ K7_BENCH_KERNELS = re.compile(
 
 # K5's segment kernels at the bench instance (int16, one word a lane,
 # word loads), with and without the second best; K2's fused kernel on
-# byte cells in one launch (first and last); as cu++filt shows them or
-# mangled.
+# byte cells in one launch (first and last); K3's staged kernels at int8
+# (census: the SGM bench instance); as cu++filt shows them or mangled.
 K5_BENCH_KERNELS = re.compile(
     r"seg_kernel(<short, \(int\)1, (true|\(bool\)1), |IsLi1ELb1E)")
 K2_BENCH_KERNELS = re.compile(
     r"fused_kernel(<unsigned char, (true|\(bool\)1), (true|\(bool\)1)>|IhLb1ELb1E)")
+K3_BENCH_KERNELS = re.compile(
+    r"(pixel|vector)_kernel(<signed char, (true|\(bool\)1)>|IaLb1EE)")
 
 
 def k7_bound_ms(cost: str, npix: int, d: int) -> tuple[float, str]:
@@ -169,10 +174,39 @@ def k2_bound_ms(npix: int, times: int) -> tuple[float, str]:
     return bound(8 * npix, K2_CELL_OPS * npix * max(times - 1, 0), INT32_OPS_PER_S)
 
 
-def k6_bound_ms(npix: int, iterations: int) -> tuple[float, str]:
-    """K6's least time on the card for ``npix`` pixels and ``iterations``
-    sweeps: the float32 disparity and the bool validity in, the float32
-    result out (9 B per pixel); about 12 float32 ops per pixel and sweep
-    (the two neighbour sums of four, the validity products, the divide
-    and the selects).  -> (ms, "operations" or "bytes")."""
-    return bound(9 * npix, 12 * iterations * npix, FP32_OPS_PER_S)
+# The float32 operations of one fill of the validity-aware fill (K6): the
+# four neighbours' products d * v (4 multiplies), their sum (3 adds), the
+# validities' sum (3 adds), max(den, 1) and the divide.  A cell fills once,
+# at the sweep where it turns valid (its d never changes again); cells
+# valid from the start and cells that never fill do no float work, and the
+# sweeps' validity tests are integer work on words of four cells, not
+# charged.  None of the float ops may be contracted into a fused
+# multiply-add (the result stays bitwise the plain version's), so they
+# issue at ``FP32_UNFUSED_OPS_PER_S``.
+K6_FILL_OPS = 12
+
+
+def k6_filled(valid, iterations: int) -> int:
+    """The cells of the bool plane ``valid`` [..., H, W] (a torch tensor)
+    that K6 fills in ``iterations`` sweeps: an invalid cell turns valid at
+    the first sweep after which a 4-neighbour inside the image is valid."""
+    v = valid.clone()
+    for _ in range(iterations):
+        n = v.clone()
+        n[..., :, :-1] |= v[..., :, 1:]
+        n[..., :, 1:] |= v[..., :, :-1]
+        n[..., :-1, :] |= v[..., 1:, :]
+        n[..., 1:, :] |= v[..., :-1, :]
+        if not bool((n ^ v).any()):
+            break
+        v = n
+    return int((v & ~valid).sum())
+
+
+def k6_bound_ms(npix: int, filled: int) -> tuple[float, str]:
+    """K6's least time on the card for ``npix`` pixels of which ``filled``
+    turn valid (``k6_filled``): the float32 disparity and the bool
+    validity in, the float32 result out (9 B per pixel); ``K6_FILL_OPS``
+    per filled cell at the unfused float32 rate, whatever the sweeps.
+    -> (ms, "operations" or "bytes")."""
+    return bound(9 * npix, K6_FILL_OPS * filled, FP32_UNFUSED_OPS_PER_S)

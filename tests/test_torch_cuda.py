@@ -18,6 +18,9 @@ from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
 from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.models import modern
 from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_modern, fused_sgm, sgm
+# By the module's own name (pytest puts tests/ on the path): on a GPU host
+# an installed package named ``tests`` can shadow this directory.
+from test_torch_fill import special_disparities
 
 MODES = [BoundaryMode.WRAP, BoundaryMode.GHOST]
 
@@ -158,6 +161,48 @@ def test_sgm_volume_kernel_matches_plain(cuda_device, shape, cost_dtype, d):
     assert fused_sgm.sgm_volume.launches == before + 1
     assert got.dtype == dtype and got.shape == (*shape, d)
     assert torch.equal(got, fused_sgm.sgm_volume_reference(ref, other, d, cost, dtype))
+
+
+# K3 on each route: D around a 16-byte vector (1, 15, 16, 17), D 37 and
+# 100 (vectors spanning pixels where the row fills whole vectors), 64 and
+# 256 (pixels); widths 1024 (rows of whole vectors), 45 and 1021 (not);
+# census codes over all 32 bits.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 15, 16, 17, 37, 64, 100, 256])
+@pytest.mark.parametrize("cost_dtype", [("census", torch.int8), ("sad", torch.int16),
+                                        ("census", torch.int32)])
+@pytest.mark.parametrize("shape", [(2, 3, 1024), (2, 5, 45), (1, 4, 1021)])
+def test_sgm_volume_routes_match_plain(cuda_device, shape, cost_dtype, d):
+    cost, dtype = cost_dtype
+    rng = np.random.default_rng(22)
+    if cost == "census":
+        ref, other = (torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                                       .astype(np.int32)).to(cuda_device) for _ in range(2))
+    else:
+        ref, other = rand_codes(cuda_device, shape, cost, 22)
+    before = fused_sgm.sgm_volume.launches
+    got = fused_sgm.sgm_volume(ref, other, d, cost, dtype)
+    torch.cuda.synchronize()
+    assert fused_sgm.sgm_volume.launches == before + 1
+    assert torch.equal(got, fused_sgm.sgm_volume_reference(ref, other, d, cost, dtype))
+
+
+@pytest.mark.cuda
+def test_k3_route_mirror_matches_the_library(cuda_device):
+    """``k3_route`` gives the library's own route (``sgm_volume_route``),
+    and the library refuses a vector route the shape does not take."""
+    lib = fused_sgm._lib("sgm_volume")
+    for dtype in (torch.int8, torch.int16, torch.int32):
+        esz = torch.empty((), dtype=dtype).element_size()
+        for d in (1, 2, 3, 4, 8, 15, 16, 17, 37, 64, 100, 256, 320, 11776, 11777, 11792):
+            for w in (1, 4, 16, 45, 1021, 1024, 3840):
+                want = fused_sgm.K3_ROUTES.index(fused_sgm.k3_route((1, 1, w, d), dtype))
+                assert lib.sgm_volume_route(w, d, esz) == want
+    x = torch.zeros((1, 4, 45), dtype=torch.int32, device=cuda_device)
+    vol = torch.empty((1, 4, 45, 15), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError):  # 45 x 15 bytes a row: the element route's
+        fused_sgm._launch("sgm_volume", cuda_device, x.data_ptr(), x.data_ptr(),
+                          vol.data_ptr(), 1, 4, 45, 15, 1, 1, 1)
 
 
 # K4 also at 2 disparities a lane and more: ND = ceil(D / 32) is 4 at D 100
@@ -451,21 +496,42 @@ def test_k5_smem_mirror_matches_the_library(cuda_device):
                 assert fused_sgm.k5_smem_bytes(esz, d, w) == lib.sgm_tail_smem_bytes(esz, d, w)
 
 
+# K6 around its launches (16 sweeps a launch: 15, 16, 17, 31, 33) on
+# shapes of one row or column and widths and heights that are not a
+# multiple of its 64 x 64 tile; random validity 30% (holes that fill) and
+# 90%.
 @pytest.mark.cuda
-@pytest.mark.parametrize("iterations", [0, 1, 2, 3, 16])
-@pytest.mark.parametrize("shape", [(2, 37, 45), (1, 1, 70), (3, 64, 33)])
-def test_fill_invalid_kernel_matches_plain(cuda_device, shape, iterations):
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("iterations", [0, 1, 2, 3, 15, 16, 17, 31, 33])
+@pytest.mark.parametrize("shape", [(2, 37, 45), (1, 1, 70), (3, 64, 33), (1, 70, 1),
+                                   (2, 130, 200), (1, 65, 129), (2, 64, 64)])
+def test_fill_invalid_kernel_matches_plain(cuda_device, shape, iterations, special):
     rng = np.random.default_rng(24)
-    d = torch.from_numpy((rng.random(shape) * 64).astype(np.float32)).to(cuda_device)
-    v = torch.from_numpy(rng.random(shape) < 0.3).to(cuda_device)
-    d0, v0 = d.clone(), v.clone()
-    before = fused_diffusion.fill_invalid.launches
-    got = fused_diffusion.fill_invalid(d, v, iterations)
-    torch.cuda.synchronize()
-    assert fused_diffusion.fill_invalid.launches == before + iterations
-    assert torch.equal(d, d0) and torch.equal(v, v0)  # inputs untouched
-    ref = fused_diffusion.fill_invalid_reference(d, v, iterations)
-    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))  # bits
+    for density in (0.3, 0.9):
+        d = (rng.random(shape) * 64).astype(np.float32)
+        v = rng.random(shape) < density
+        if special:
+            d = special_disparities(d, v, rng)
+        d, v = (torch.from_numpy(x).to(cuda_device) for x in (d, v))
+        d0, v0 = d.clone(), v.clone()
+        before = fused_diffusion.fill_invalid.launches
+        got = fused_diffusion.fill_invalid(d, v, iterations)
+        torch.cuda.synchronize()
+        assert (fused_diffusion.fill_invalid.launches
+                == before + fused_diffusion.k6_plan(iterations).launches)
+        assert torch.equal(d.view(torch.int32), d0.view(torch.int32)) and torch.equal(v, v0)
+        ref = fused_diffusion.fill_invalid_reference(d, v, iterations)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))  # bits, NaNs too
+
+
+@pytest.mark.cuda
+def test_k6_mirrors_match_the_library(cuda_device):
+    """``K6_MAX_SWEEPS`` and ``k6_smem_bytes``, by which ``k6_plan``
+    counts launches, give the library's own figures."""
+    lib = fused_diffusion._lib("fill_invalid")
+    assert lib.fill_invalid_max_sweeps() == fused_diffusion.K6_MAX_SWEEPS
+    for h in range(fused_diffusion.K6_MAX_SWEEPS + 1):
+        assert lib.fill_invalid_smem_bytes(h) == fused_diffusion.k6_smem_bytes(h)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ from stereomatching_tpu.ops.argmax import match_and_score as j_match_and_score
 from stereomatching_tpu.ops.diffusion import fill_web_holes as j_fill_web_holes
 from stereomatching_tpu.ops.edges import find_edges as j_find_edges
 from stereomatching_tpu_torch.interop import params_from_jax
-from stereomatching_tpu_torch.ops import fused, fused_diffusion
+from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_sgm
 from tests.test_torch_ops import MODES, brightness_batch
 
 
@@ -133,6 +133,50 @@ def test_k2_smem_fits_a_block_at_every_storage():
     assert fused_diffusion.k2_smem_bytes(1, 16) == 2 * 160 * 168
     assert fused_diffusion.k2_smem_bytes(2, 31) == 2 * 126 * 192 * 2
     assert fused_diffusion.k2_smem_bytes(4, 0) == 2 * 64 * 64 * 4
+
+
+@pytest.mark.parametrize("iterations, want", [
+    (0, (5, 0, 0)), (1, (5, 1, 1)), (15, (5, 1, 15)), (16, (5, 1, 16)), (17, (5, 2, 9)),
+    (32, (5, 2, 16)), (33, (5, 3, 11)), (100, (5, 7, 15)),
+])
+def test_k6_plan_at_its_edges(iterations, want):
+    """K6's launches, ceil(sweeps / 16) (none at 0 sweeps), and the sweeps
+    of its first launch, the sweeps split evenly (h = 16: 0, 1, h, h + 1,
+    2h + 1 sweeps; the pipelines' 16 in one launch)."""
+    assert fused_diffusion.K6_MAX_SWEEPS == 16
+    assert tuple(fused_diffusion.k6_plan(iterations)) == want
+    with pytest.raises(ValueError):
+        fused_diffusion.k6_plan(-1)
+
+
+def test_k6_smem_fits_a_block():
+    """Every launch's tile, with its halo of up to K6_MAX_SWEEPS rows and
+    columns, fits a block's shared memory (the C entry's figure, pinned
+    on the card): 96 x 104 cells of 5 bytes at 16 sweeps."""
+    for h in range(fused_diffusion.K6_MAX_SWEEPS + 1):
+        assert fused_diffusion.k6_smem_bytes(h) <= 232448
+    assert fused_diffusion.k6_smem_bytes(16) == 5 * 96 * 104
+    assert fused_diffusion.k6_smem_bytes(8) == 5 * 80 * 88
+    assert fused_diffusion.k6_smem_bytes(1) == 5 * 66 * 72
+
+
+@pytest.mark.parametrize("w, d, dtype, want", [
+    (1024, 64, torch.int8, "pixels"), (1024, 256, torch.int8, "pixels"),
+    (45, 32, torch.int8, "pixels"), (45, 64, torch.int16, "pixels"), (45, 96, torch.int32, "pixels"),
+    (45, 16, torch.int8, "vectors"), (45, 8, torch.int16, "vectors"), (45, 4, torch.int32, "vectors"),
+    (1024, 37, torch.int8, "vectors"), (1024, 100, torch.int16, "vectors"),
+    (16, 1, torch.int8, "vectors"), (4, 3, torch.int32, "vectors"),
+    (1021, 37, torch.int8, "elements"), (45, 15, torch.int8, "elements"),
+    (45, 1, torch.int32, "elements"), (1023, 100, torch.int16, "elements"),
+    (1024, 11776, torch.int8, "pixels"), (1024, 11792, torch.int8, "elements"),
+])
+def test_k3_route_at_aligned_and_unaligned_shapes(w, d, dtype, want):
+    """K3's route from (W, D, dtype) alone: the pixels where D is a
+    multiple of 32, the vectors where a row's W * D costs fill whole
+    16-byte vectors, the element kernel for the rest and past 48 KB of
+    staged codes."""
+    assert fused_sgm.k3_route((2, 3, w, d), dtype) == want
+    assert fused_sgm.k3_smem_bytes(d) == 4 * (2 * 256 + d - 1)
 
 
 def test_wrappers_refuse_other_devices():

@@ -30,6 +30,7 @@ from stereomatching_tpu.ops.fused_sgm import sgm_volume_vmajor_pallas
 from stereomatching_tpu_torch.interop import params_from_jax
 from stereomatching_tpu_torch.models import modern
 from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_sgm, sgm
+from tests.test_torch_fill import special_disparities
 from tests.util import synthetic_pair
 
 
@@ -121,10 +122,25 @@ def test_fill_background():
     assert not got[0, 3].any()
 
 
+def assert_same_bits(port: torch.Tensor, ref) -> None:
+    """float32 planes equal as int32 bits, and NaN at the same cells.  A
+    NaN's sign is not compared: where two NaNs meet in a sum, x86 keeps
+    the first operand's, and the XLA and torch programs order the
+    operands of the neighbour sum differently."""
+    ref = np.asarray(ref)
+    got = port.numpy()
+    assert got.dtype == ref.dtype == np.float32 and got.shape == ref.shape
+    nan = np.isnan(ref)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got.view(np.int32)[~nan], ref.view(np.int32)[~nan])
+
+
 @pytest.mark.parametrize("iterations", [0, 1, 3, 16])
 def test_fill_invalid_plain_matches_jax(iterations):
     """K6's plain version (the wrapper on CPU tensors) and the costvolume
-    op both equal the JAX XLA fill, float bits included."""
+    op both equal the JAX XLA fill, float bits included; with negative,
+    -0.0, +-inf and NaN disparities too (``special_disparities``),
+    compared as int32 bits (``assert_same_bits``)."""
     rng = np.random.default_rng(6)
     d = (rng.random((2, 17, 29)) * 30).astype(np.float32)
     v = rng.random((2, 17, 29)) < 0.3
@@ -136,6 +152,14 @@ def test_fill_invalid_plain_matches_jax(iterations):
     assert_same(costvolume.fill_invalid(torch.from_numpy(d), torch.from_numpy(v), iterations), ref)
     single = fused_diffusion.fill_invalid(torch.from_numpy(d[1]), torch.from_numpy(v[1]), iterations)
     assert torch.equal(single, got[1])
+
+    ds = special_disparities(d, v, rng)
+    ref = per_image(lambda a, b: j_cv.fill_invalid(a, b, iterations), ds, v)
+    if iterations:  # filled cells reach both hazards
+        filled = ~v & (ref.view(np.int32) != ds.view(np.int32))
+        assert (np.isnan(ref) & filled).any() and (np.signbit(ref) & (ref == 0) & filled).any()
+    for port in (fused_diffusion.fill_invalid, costvolume.fill_invalid):
+        assert_same_bits(port(torch.from_numpy(ds), torch.from_numpy(v), iterations), ref)
 
 
 # ------------------------------------------------------ ops/sgm.py

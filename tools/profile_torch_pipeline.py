@@ -19,6 +19,8 @@ uniqueness).
     python3 tools/profile_torch_pipeline.py --k7-against DIR [DIR ...]  # K7 against others
     python3 tools/profile_torch_pipeline.py --k5-against DIR [DIR ...]  # K5 against others
     python3 tools/profile_torch_pipeline.py --k2-against DIR [DIR ...]  # K2 against others
+    python3 tools/profile_torch_pipeline.py --k6-against DIR [DIR ...]  # K6 against others
+    python3 tools/profile_torch_pipeline.py --k3-against DIR [DIR ...]  # K3 against others
 
 Classic:
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
@@ -137,6 +139,23 @@ timed in turns beside ``k2_bound_ms``; and each library's SASS counts and
 registers.  ``nvidia-smi`` clocks, power and temperature are printed at
 the start and the end.
 
+With ``--k6-against DIR [DIR ...]`` (the parent's ``fill_invalid.cu``
+first, then trial sources, e.g. this one with its tile or most sweeps a
+launch changed) K6 against those versions in one process, at each
+instance of ``K6_SWEEP`` (8 x 1024 x 1024 with the SGM route's validity
+plane at 16, 32 and 100 sweeps and with 40% random holes at 1, 16 and
+100; one 2160 x 3840 image): every library's output compared bitwise with
+this one's and this one's with the plain version, then timed in turns
+beside ``k6_bound_ms``, with each library's launches; each library's
+SASS counts and registers.
+
+With ``--k3-against DIR [DIR ...]`` (the parent's ``sgm_volume.cu``
+first, then trial sources) K3 the same way at each instance of
+``K3_SWEEP`` (census int8 at D 64, 128 and 256, SAD int16 and census
+int32 at D 64, census int8 at D 37 and 100; batch 8 up to D=64, nvox
+held from there), beside ``k3_bound_ms``, with the route ``k3_route``
+takes.
+
 Inputs are random uint8 pairs from ``SEED``.  Imports no jax.
 """
 
@@ -238,8 +257,8 @@ def modern_stages(params, lt, rt) -> dict:
             "K7 disparity, left view": lambda: fused_modern.disparity(lt, rt, params, "left"),
             "K7 disparity, right view": lambda: fused_modern.disparity(rt, lt, params, "right"),
             "LR check (torch)": lr(dl.disparity, dr.disparity),
-            "K6 fill_invalid x16": lambda: fused_diffusion.fill_invalid(
-                dl.subpixel, valid, params.fill_iterations),
+            f"K6 fill_invalid, {params.fill_iterations} sweeps":
+                lambda: fused_diffusion.fill_invalid(dl.subpixel, valid, params.fill_iterations),
         }
     st, odt = modern._sgm_storage_dtype(params), modern._sgm_out_dtype(params)
     n_paths = params.sgm_directions
@@ -261,8 +280,8 @@ def modern_stages(params, lt, rt) -> dict:
     if params.median_filter:
         stages["median x3 (torch)"] = lambda: [costvolume.median3x3(x) for x in (disp, sub, dr)]
     stages["LR check (torch)"] = lr(disp, dr)
-    stages[f"K6 fill_invalid x{params.fill_iterations}"] = lambda: fused_diffusion.fill_invalid(
-        sub, valid, params.fill_iterations)
+    stages[f"K6 fill_invalid, {params.fill_iterations} sweeps"] = (
+        lambda: fused_diffusion.fill_invalid(sub, valid, params.fill_iterations))
     return stages
 
 
@@ -517,6 +536,17 @@ def print_sass(label: str, library, ops=("LDS", "STS", "BAR"), kernels=None) -> 
             print(f"[sass {label}] {name}: total {c['total']}")
             for start, end, counts in c["loops"]:
                 print(f"[sass {label}]   loop {start:#06x}-{end:#06x}: {counts}")
+
+
+def print_build(label: str, library, ops) -> None:
+    """SASS counts of ``ops`` per kernel and loop of a built library, and
+    every kernel's registers and local memory."""
+    from stereomatching_tpu_torch.utils.build import resource_usage
+
+    print_sass(label, library, ops)
+    print(f"[regs {label}] " + "; ".join(
+        f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
+        for m, r in resource_usage(library).items()), flush=True)
 
 
 def time_in_turns(order: list, make, iters: int) -> list:
@@ -1021,7 +1051,7 @@ def main_k5_against(src_dirs: list[Path]) -> None:
 
     from stereomatching_tpu_torch.ops import fused_sgm
     from stereomatching_tpu_torch.utils.bench import k5_bound_ms
-    from stereomatching_tpu_torch.utils.build import _target, resource_usage
+    from stereomatching_tpu_torch.utils.build import _target
 
     smi = card()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1030,10 +1060,7 @@ def main_k5_against(src_dirs: list[Path]) -> None:
         libs = build_libraries("sgm_tail", src_dirs, tmp)
         fns = {}
         for label, so in libs.items():
-            print_sass(label, so, K5_OPS)
-            print(f"[regs {label}] " + "; ".join(
-                f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
-                for m, r in resource_usage(so).items()), flush=True)
+            print_build(label, so, K5_OPS)
             lib = ctypes.CDLL(str(so))
             routed = hasattr(lib, "sgm_tail_smem_bytes")
             lib.sgm_tail.argtypes = fused_sgm._SIGNATURES["sgm_tail"][:None if routed else -2] + [
@@ -1113,7 +1140,7 @@ def main_k2_against(src_dirs: list[Path]) -> None:
 
     from stereomatching_tpu_torch.ops import fused_diffusion
     from stereomatching_tpu_torch.utils.bench import k2_bound_ms
-    from stereomatching_tpu_torch.utils.build import _target, resource_usage
+    from stereomatching_tpu_torch.utils.build import _target
 
     smi = card()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1123,10 +1150,7 @@ def main_k2_against(src_dirs: list[Path]) -> None:
         libs = build_libraries("fill_web_holes", src_dirs, tmp)
         fns = {}
         for label, so in libs.items():
-            print_sass(label, so, K2_OPS)
-            print(f"[regs {label}] " + "; ".join(
-                f"{m}: {r['REG']} regs, {r['LOCAL']} B local"
-                for m, r in resource_usage(so).items()), flush=True)
+            print_build(label, so, K2_OPS)
             lib = ctypes.CDLL(str(so))
             fused = hasattr(lib, "fill_web_holes_max_steps")
             lib.fill_web_holes_range.argtypes = (
@@ -1239,6 +1263,199 @@ def main_k2_against(src_dirs: list[Path]) -> None:
           f"clocks (sm, mem, power, temp) {clocks()}")
 
 
+# K6's timed instances: (validity, batch, H, W, iterations).  "sgm": the
+# SGM route's LR-check plane of random pairs (its sub-pixel plane as d);
+# "holes": 40% random holes in random d.  The first is the modern
+# pipeline's default (16 sweeps) on the SGM route; one sweep shows a
+# launch's fixed cost (staging and write-back).
+K6_SWEEP = [("sgm", 8, 1024, 1024, 16), ("holes", 8, 1024, 1024, 16), ("sgm", 8, 1024, 1024, 32),
+            ("sgm", 8, 1024, 1024, 100), ("holes", 8, 1024, 1024, 100), ("holes", 1, 2160, 3840, 16),
+            ("holes", 8, 1024, 1024, 1)]
+K6_OPS = ("LDS", "STS", "BAR", "LDG", "STG", "ALL")
+
+
+def sgm_fill_inputs(b: int, h: int, w: int, seed: int):
+    """The SGM route's (sub-pixel, LR-valid) planes of ``b`` random
+    ``h`` x ``w`` pairs (census, 4 paths, D=64) on the card."""
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import ModernParams
+    from stereomatching_tpu_torch.models import modern
+
+    rng = np.random.default_rng(seed)
+    lt, rt = (torch.from_numpy(rng.integers(0, 256, (b, h, w), dtype=np.uint8)).cuda()
+              .to(torch.int32) for _ in range(2))
+    out = modern.ModernPipeline(ModernParams(num_disparities=SHIFTS, aggregation="sgm",
+                                             cost="census"))(lt, rt)
+    return out["subpixel"].contiguous(), out["valid"].contiguous()
+
+
+def main_k6_against(src_dirs: list[Path]) -> None:
+    """K6 against other ``fill_invalid.cu`` sources in one process (the
+    parent's first, then trial copies): at each instance of ``K6_SWEEP``
+    every library's output compared bitwise with this one's, and this
+    one's with the plain version, then the call timed in turns (the
+    others, this, then the same in reverse) beside ``k6_bound_ms``, with
+    each library's launches; each library's SASS counts and registers.
+    Every library takes the same C entry; the parent's reads all three
+    scratch planes."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch.ops import fused_diffusion
+    from stereomatching_tpu_torch.utils.bench import k6_bound_ms, k6_filled
+    from stereomatching_tpu_torch.utils.build import _target
+
+    smi = card()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"clocks (sm, mem, power, temp) {clocks()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_libraries("fill_invalid", src_dirs, tmp)
+        fns = {}
+        for label, so in libs.items():
+            print_build(label, so, K6_OPS)
+            lib = ctypes.CDLL(str(so))
+            lib.fill_invalid.argtypes = fused_diffusion._ENTRIES["fill_invalid"][1]
+            lib.fill_invalid.restype = ctypes.c_int
+            fused = hasattr(lib, "fill_invalid_max_sweeps")
+            per_launch = lib.fill_invalid_max_sweeps() if fused else 1
+            fns[label] = (lib.fill_invalid, per_launch)
+        others = [k for k in fns if k != "this"]
+        order = [*others, "this"]
+        order = order + order[::-1]
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(SEED)
+        for kind, b, h, w, iters in K6_SWEEP:
+            if kind == "sgm":
+                d, valid = sgm_fill_inputs(b, h, w, SEED)
+            else:
+                d = torch.from_numpy((rng.random((b, h, w)) * SHIFTS).astype(np.float32)).to(dev)
+                valid = torch.from_numpy(rng.random((b, h, w)) >= 0.4).to(dev)
+            outs = {label: torch.empty_like(d) for label in fns}
+            scratch = [torch.empty_like(d)] + [torch.empty_like(valid, dtype=torch.uint8)
+                                               for _ in range(2)]
+
+            def call(label):
+                fn = fns[label][0]
+                err = fn(d.data_ptr(), valid.data_ptr(), outs[label].data_ptr(),
+                         *[t.data_ptr() for t in scratch], b, h, w, iters,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"K6 {label} failed: CUDA error {err}")
+
+            for label in fns:
+                call(label)
+            bits = {label: o.view(torch.int32) for label, o in outs.items()}
+            plain = fused_diffusion.fill_invalid_reference(d, valid, iters).view(torch.int32)
+            if not torch.equal(bits["this"], plain):
+                sys.exit(f"K6 this differs from the plain version at {kind} {b}x{h}x{w} "
+                         f"iterations {iters}")
+            for label in others:
+                if not torch.equal(bits[label], bits["this"]):
+                    sys.exit(f"K6 {label} differs from this at {kind} {b}x{h}x{w} "
+                             f"iterations {iters}")
+            times = time_in_turns(order, lambda label: (lambda: call(label)), 10)
+            bd = k6_bound_ms(b * h * w, k6_filled(valid, iters))
+            launches = ", ".join(f"{label} {-(-iters // fns[label][1])}" for label in fns)
+            print(f"[k6 instance] {kind} {b}x{h}x{w} iterations {iters}, valid "
+                  f"{float(valid.float().mean()):.2%}: equal to each other and to the plain "
+                  f"version; launches {launches}; bound {bd[0]:.4f} ms ({bd[1]}); ms per call "
+                  + turns_text(times), flush=True)
+            del d, valid, outs, scratch, bits, plain
+    print(f"[k6 against] this library: {_target('fill_invalid').name}; card {smi}; "
+          f"clocks (sm, mem, power, temp) {clocks()}")
+
+
+# K3's timed instances: (cost, volume dtype, D), each at 8 x 1024 x 1024
+# pixels scaled down by D / 64 from D=64 (nvox fixed at the bench
+# instance's).  The first is the SGM route's volume.
+K3_SWEEP = [("census", "int8", 64), ("census", "int8", 128), ("census", "int8", 256),
+            ("sad", "int16", 64), ("census", "int32", 64), ("census", "int8", 37),
+            ("census", "int8", 100)]
+K3_OPS = ("LDS", "STS", "LDG", "STG", "POPC", "MUFU", "BAR", "ALL")
+
+
+def main_k3_against(src_dirs: list[Path]) -> None:
+    """K3 against other ``sgm_volume.cu`` sources in one process (the
+    parent's first, then trial copies): at each instance of ``K3_SWEEP``
+    every library's volume compared bitwise with this one's, and this
+    one's with the plain version, then the call timed in turns beside
+    ``k3_bound_ms``, with the route ``k3_route`` takes; each library's
+    SASS counts per kernel and loop and registers.  A library without
+    ``sgm_volume_route`` (the parent's) takes the C entry without a route
+    argument; this one takes ``k3_route``'s route."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch.ops import costvolume, fused_sgm
+    from stereomatching_tpu_torch.utils.bench import k3_bound_ms
+    from stereomatching_tpu_torch.utils.build import _target
+
+    smi = card()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"clocks (sm, mem, power, temp) {clocks()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_libraries("sgm_volume", src_dirs, tmp)
+        fns = {}
+        for label, so in libs.items():
+            print_build(label, so, K3_OPS)
+            lib = ctypes.CDLL(str(so))
+            routed = hasattr(lib, "sgm_volume_route")
+            lib.sgm_volume.argtypes = fused_sgm._SIGNATURES["sgm_volume"][:None if routed else -2] + [
+                ctypes.c_void_p] * (0 if routed else 1)
+            lib.sgm_volume.restype = ctypes.c_int
+            fns[label] = (lib.sgm_volume, routed)
+        others = [k for k in fns if k != "this"]
+        order = [*others, "this"]
+        order = order + order[::-1]
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(SEED)
+        for cost, dtype_name, d in K3_SWEEP:
+            dtype = getattr(torch, dtype_name)
+            batch = max(1, 8 * 64 // max(d, 64))
+            pix = [torch.from_numpy(rng.integers(0, 256, (batch, SIZE, SIZE), dtype=np.uint8))
+                   .to(dev).to(torch.int32) for _ in range(2)]
+            ref, other = ([costvolume.census_transform(x).contiguous() for x in pix]
+                          if cost == "census" else pix)
+            vols = {label: torch.empty((batch, SIZE, SIZE, d), dtype=dtype, device=dev)
+                    for label in fns}
+            route = fused_sgm.k3_route(vols["this"].shape, dtype)
+
+            def call(label):
+                fn, routed = fns[label]
+                extra = [fused_sgm.K3_ROUTES.index(route)] if routed else []
+                vol = vols[label]
+                err = fn(ref.data_ptr(), other.data_ptr(), vol.data_ptr(), batch, SIZE, SIZE, d,
+                         int(cost == "census"), vol.element_size(), *extra,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"K3 {label} failed: CUDA error {err}")
+
+            for label in fns:
+                call(label)
+            if not torch.equal(vols["this"], fused_sgm.sgm_volume_reference(ref, other, d, cost,
+                                                                            dtype)):
+                sys.exit(f"K3 this differs from the plain version at {cost} {dtype_name} D {d}")
+            for label in others:
+                if not torch.equal(vols[label], vols["this"]):
+                    sys.exit(f"K3 {label} differs from this at {cost} {dtype_name} D {d}")
+            times = time_in_turns(order, lambda label: (lambda: call(label)), 10)
+            bd = k3_bound_ms(batch * SIZE * SIZE, d, vols["this"].element_size(), cost)
+            print(f"[k3 instance] {cost} {dtype_name} D {d}, {batch}x{SIZE}x{SIZE}: equal to each "
+                  f"other and to the plain version; this: {route}; bound {bd[0]:.4f} ms "
+                  f"({bd[1]}); ms per call " + turns_text(times), flush=True)
+            del pix, ref, other, vols
+    print(f"[k3 against] this library: {_target('sgm_volume').name}; card {smi}; "
+          f"clocks (sm, mem, power, temp) {clocks()}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pipeline", choices=("classic", "reference", *MODERN),
@@ -1257,6 +1474,10 @@ def main() -> None:
                         help="time K5 against the sgm_tail.cu in each DIR")
     parser.add_argument("--k2-against", metavar="DIR", type=Path, nargs="+",
                         help="time K2 against the fill_web_holes.cu in each DIR (the parent's first)")
+    parser.add_argument("--k6-against", metavar="DIR", type=Path, nargs="+",
+                        help="time K6 against the fill_invalid.cu in each DIR (the parent's first)")
+    parser.add_argument("--k3-against", metavar="DIR", type=Path, nargs="+",
+                        help="time K3 against the sgm_volume.cu in each DIR (the parent's first)")
     args = parser.parse_args()
     import torch
 
@@ -1275,6 +1496,10 @@ def main() -> None:
         main_k5_against([d.resolve() for d in args.k5_against])
     elif args.k2_against:
         main_k2_against([d.resolve() for d in args.k2_against])
+    elif args.k6_against:
+        main_k6_against([d.resolve() for d in args.k6_against])
+    elif args.k3_against:
+        main_k3_against([d.resolve() for d in args.k3_against])
     elif args.mesh:
         data, rows = (int(x) for x in args.mesh.split("x"))
         main_sharded(args.pipeline, data, rows)
