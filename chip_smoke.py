@@ -34,7 +34,12 @@ registers (``k7_sass``); K5's segment kernels and K2's fused kernel
 (``k5_sass``, ``k2_sass``); K6's fused kernel and K3's staged int8 census
 kernels, K3's per element (``k6_sass``, ``k3_sass``); and K7's time over
 its sweep of windows, D and costs beside each instance's bound
-(``k7_instances``).
+(``k7_instances``).  Then the input and quality side: ``BatchLoader`` on
+17 PNG pairs feeding the classic and SGM pipelines on the card, with its
+decode + H2D pace beside the device's (a ``{"loader": ...}`` line); the
+numpy oracle against the card's classic artifacts, and the CLI's
+``--tier oracle``; ``tools/eval_quality_torch.py`` on the card against
+the CPU.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -101,6 +106,15 @@ def same(a, b) -> bool:
     if a.is_floating_point():
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+def bits(x):
+    """A numpy plane with its float32 values as their int32 bit patterns
+    (so that equality is bitwise, NaN included)."""
+    import numpy as np
+
+    x = np.asarray(x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
 
 
 def u8_to_brightness(x):
@@ -178,6 +192,343 @@ def cuda_time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def start_jobs(pool, jobs):
+    """Start each ``{label: argv}`` job (``python argv...`` from the root of
+    the checkout, one intra-op thread each, as several run at once) on a
+    thread of ``pool`` -> {label: future of (CompletedProcess, wall s)}."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+
+    def one(argv):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600, env=env)
+        return res, time.perf_counter() - t0
+
+    return {label: pool.submit(one, argv) for label, argv in jobs.items()}
+
+
+def finished(futures):
+    """-> {label: (stdout, wall s)} of ``start_jobs``' futures; fails on a
+    non-zero exit."""
+    out = {}
+    for label, fut in futures.items():
+        res, wall = fut.result()
+        check(res.returncode == 0, f"{label} exited {res.returncode}: {res.stderr[-2000:]}")
+        out[label] = (res.stdout, wall)
+    return out
+
+
+def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
+    """Phases 28-30: the loader feeding the classic and SGM pipelines, the
+    numpy oracle against the card (and the CLI's ``--tier oracle``), and
+    the quality tool on the card against the CPU, at 1024², D=64.
+    ``cli_pair``: phase 18's (left, right) uint8 pair."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import BoundaryMode, ModernParams, StereoParams
+    from stereomatching_tpu_torch.data import BatchLoader, StereoPairDataset
+    from stereomatching_tpu_torch.data.formats import (
+        read_ground_truth, write_disparity_png, write_pfm)
+    from stereomatching_tpu_torch.interop import artifacts_to_numpy
+    from stereomatching_tpu_torch.models.classic import ClassicPipeline
+    from stereomatching_tpu_torch.models.modern import ModernPipeline
+    from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_modern, fused_sgm
+    from stereomatching_tpu_torch.oracle import pipeline as oracle
+    from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
+    from stereomatching_tpu_torch.utils.imageio import (
+        artifact_ppm_type, ppm_bytes, write_png_gray)
+    from stereomatching_tpu_torch.utils.metrics import disparity_report
+    from stereomatching_tpu_torch.utils.synthetic import blob_scene
+
+    wrappers = {"match_score_edges": fused.match_score_edges,
+                "match_and_score": fused.match_and_score,
+                "fill_web_holes_range": fused_diffusion.fill_web_holes_range,
+                "disparity": fused_modern.disparity,
+                "sgm_volume": fused_sgm.sgm_volume,
+                "sgm_directional": fused_sgm.sgm_directional,
+                "sgm_tail": fused_sgm.sgm_tail,
+                "fill_invalid": fused_diffusion.fill_invalid}
+
+    def counted(fn):
+        """-> (fn(), {wrapper: launches during it}), counted from zero."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        return out, {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    params = StereoParams(num_shifts=SHIFTS, mode=BoundaryMode.GHOST, edge_rule="exact")
+    mparams = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census",
+                           sgm_directions=4)
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    # Phase 28: the loader on the card.  17 shifted textures (blocks 2 and
+    # 4; right(x) = left(x - d) and left(x + d) in turn, the classic and SGM
+    # pairings) as PNGs in both layouts (<stem>_left/_right.png and a/b.png
+    # directories); BatchLoader(batch 8, device cuda, drop_last False)
+    # yields 8, 8 and 1 real pairs padded to 8, bitwise the numpy batches;
+    # each batch through the classic pipeline (bench params) and the SGM
+    # pipeline (bench.py's SGM params), every plane bitwise Matcher's /
+    # ModernMatcher's on the same decoded pairs; the known shifts.
+    prng = np.random.default_rng(SEED + 28)
+    n_pairs = 17
+    scenes = [shifted_pair(prng, SIZE, (2, 4)[i % 4 // 2], SHIFTS, sign=(-1, 1)[i % 2])
+              for i in range(n_pairs)]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, ThreadPoolExecutor(8) as pool:
+        tmp = Path(tmp)
+        index, writes = {}, []
+        for i, (left, right, _) in enumerate(scenes):
+            if i % 2:
+                (tmp / f"s{i:02d}").mkdir()
+                paths = (tmp / f"s{i:02d}" / "a.png", tmp / f"s{i:02d}" / "b.png")
+            else:
+                paths = (tmp / f"p{i:02d}_left.png", tmp / f"p{i:02d}_right.png")
+            index[str(paths[0])] = i
+            writes += [pool.submit(write_png_gray, str(paths[0]), left),
+                       pool.submit(write_png_gray, str(paths[1]), right)]
+        for w in writes:
+            w.result()
+        ds = StereoPairDataset.from_root(str(tmp))
+        order = [index[a] for a, _ in ds.pairs]
+        check(sorted(order) == list(range(n_pairs)), f"discovered {order}")
+        host = list(BatchLoader(ds, batch_size=BATCH, device_put=False))
+        loader = BatchLoader(ds, batch_size=BATCH)
+        check(loader.device == torch.device("cuda"), f"loader device {loader.device}")
+        t0 = time.perf_counter()
+        batches = list(loader)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check([k for _, _, k in batches] == [8, 8, 1], f"kept {[k for _, _, k in batches]}")
+        for (lb, rb, kept), (hl, hr, hk) in zip(batches, host):
+            check(kept == hk, "kept differs from the numpy batches'")
+            for a, b in ((lb, hl), (rb, hr)):
+                check(a.device == dev and a.shape == (BATCH, SIZE, SIZE)
+                      and same(a, torch.from_numpy(b).to(dev)),
+                      "a loader batch differs from its numpy batch")
+        # Timed alone: decode + H2D with the device idle (pool warm).
+        t0 = time.perf_counter()
+        for _ in loader:
+            pass
+        torch.cuda.synchronize()
+        loader_s = time.perf_counter() - t0
+
+        left_u8 = np.stack([scenes[i][0] for i in order])
+        right_u8 = np.stack([scenes[i][1] for i in order])
+        pipe, mpipe = ClassicPipeline(params), ModernPipeline(mparams)
+
+        def pixels(x):
+            return (x * 256).to(torch.int32)
+
+        outs, c_counts = counted(lambda: [artifacts_to_numpy(pipe(lb, rb))
+                                          for lb, rb, _ in batches])
+        mouts, m_counts = counted(lambda: [artifacts_to_numpy(mpipe(pixels(lb), pixels(rb)))
+                                           for lb, rb, _ in batches])
+        check(set(c_counts) == {"match_score_edges", "fill_web_holes_range"},
+              f"loader-fed classic launches {c_counts}")
+        check(set(m_counts) == {"sgm_volume", "sgm_directional", "sgm_tail", "fill_invalid"},
+              f"loader-fed SGM launches {m_counts}")
+        arts = Matcher(params)(left_u8, right_u8)
+        mout = ModernMatcher(mparams)(left_u8, right_u8)
+        for label, got, want in (("classic", outs, arts), ("SGM", mouts, mout)):
+            for b, (_, _, kept) in enumerate(batches):
+                for k, v in want.items():
+                    g, ref = bits(got[b][k]), bits(v[b * BATCH:b * BATCH + kept])
+                    check(g.dtype == ref.dtype and np.array_equal(g[:kept], ref),
+                          f"loader-fed {label} batch {b} {k} differs from the matcher's")
+                    check(all(np.array_equal(g[j], g[kept - 1]) for j in range(kept, BATCH)),
+                          f"loader-fed {label} batch {b} {k}: padding differs from the last pair")
+        interior = region_interiors(SIZE, params.half + SHIFTS)
+        c_hits = [float((arts["web-1"][j] == scenes[i][2] + 1)[interior].mean())
+                  for j, i in enumerate(order) if i % 2 == 0]
+        check(min(c_hits) >= 0.99, f"loader-fed classic true disparity on {c_hits}")
+        interior = region_interiors(SIZE, SHIFTS)
+        s_hits = [float((mout["disparity"][j] == scenes[i][2])[interior].mean())
+                  for j, i in enumerate(order) if i % 2]
+        check(min(s_hits) >= SGM_TRUTH_SHARE, f"loader-fed SGM true disparity on {s_hits}")
+
+        lb0, rb0, _ = batches[0]
+        pl0, pr0 = pixels(lb0), pixels(rb0)
+        dev_ms = {"classic": cuda_time_ms(lambda: pipe(lb0, rb0), 5) / BATCH,
+                  "sgm": cuda_time_ms(lambda: mpipe(pl0, pr0), 3) / BATCH}
+        del batches, outs, mouts, pl0, pr0
+        fed_ms = {}
+        for label, run in (("classic", lambda lb, rb: pipe(lb, rb)),
+                           ("sgm", lambda lb, rb: mpipe(pixels(lb), pixels(rb)))):
+            t0 = time.perf_counter()
+            for lb, rb, _ in loader:
+                run(lb, rb)
+            torch.cuda.synchronize()
+            fed_ms[label] = (time.perf_counter() - t0) * 1e3 / n_pairs
+    loader_ms = loader_s * 1e3 / n_pairs
+    print(f"[28 loader] BatchLoader(StereoPairDataset.from_root(<{n_pairs} PNG pairs, both "
+          f"layouts>), batch_size={BATCH}) on {dev}: 3 batches (kept 8, 8, 1, padded by the "
+          f"last pair) == the numpy batches bitwise; classic (ghost, exact, D={SHIFTS}) and "
+          f"SGM (census, 4 paths) on each == Matcher / ModernMatcher bitwise; true disparity "
+          f"on {', '.join(f'{h:.4%}' for h in c_hits)} (classic) and "
+          f"{', '.join(f'{h:.4%}' for h in s_hits)} (SGM) of the region interiors; launches "
+          f"{c_counts}, {m_counts}; {smi}: decode + H2D {loader_ms:.3f} ms/pair "
+          f"({1e3 / loader_ms:.1f} pairs/s; first pass {first_s * 1e3 / n_pairs:.3f}), "
+          f"device-resident classic {dev_ms['classic']:.4f} / SGM {dev_ms['sgm']:.4f} ms/pair, "
+          f"loader-fed wall classic {fed_ms['classic']:.3f} / SGM {fed_ms['sgm']:.3f} ms/pair",
+          flush=True)
+    print(json.dumps({"loader": {
+        "pairs": n_pairs, "batch": BATCH, "size": SIZE, "num_threads": loader.num_threads,
+        "prefetch": loader.prefetch, "decode_h2d_ms_per_pair": loader_ms,
+        "decode_h2d_pairs_per_s": 1e3 / loader_ms,
+        "first_pass_ms_per_pair": first_s * 1e3 / n_pairs,
+        "device_resident_ms_per_pair": dev_ms, "loader_fed_wall_ms_per_pair": fed_ms,
+        "loader_over_device": {k: loader_ms / v for k, v in dev_ms.items()},
+        "card": smi}}), flush=True)
+    del pipe, mpipe, loader
+
+    # Phase 29: the numpy oracle (float64) against the card on one 1024²
+    # blob_scene pair at D=64, sw 21, times 32, lines 10: Matcher with the
+    # exact rule in ghost and wrap mode (K1, K2), and the reference rule on
+    # float64 brightness through ClassicPipeline (K8, K2), every artifact
+    # equal; meanwhile the CLI's --tier oracle in a subprocess on phase
+    # 18's pair, its PPMs against the card's reference rule on float64.
+    left, right, _ = blob_scene(SIZE, SIZE, seed=SEED)
+    l64, r64 = left / 256.0, right / 256.0
+    rparams = StereoParams(num_shifts=SHIFTS)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, ThreadPoolExecutor(1) as pool:
+        tmp = Path(tmp)
+        lpng, rpng = str(tmp / "L.png"), str(tmp / "R.png")
+        write_png_gray(lpng, cli_pair[0])
+        write_png_gray(rpng, cli_pair[1])
+        cli_job = start_jobs(pool, {"CLI --tier oracle": [
+            "-m", "stereomatching_tpu_torch.cli", lpng, rpng, "--shifts", str(SHIFTS),
+            "--tier", "oracle", "--outdir", str(tmp / "oracle")]})
+        notes, oracle_s, card_ms = [], [], []
+        for mode, rule in ((BoundaryMode.GHOST, "exact"), (BoundaryMode.WRAP, "exact"),
+                           (BoundaryMode.GHOST, "reference"), (BoundaryMode.WRAP, "reference")):
+            p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule=rule)
+            t0 = time.perf_counter()
+            want = oracle.run_pipeline(l64, r64, p)
+            oracle_s.append(time.perf_counter() - t0)
+            if rule == "exact":
+                got, counts = counted(lambda: Matcher(p)(left, right))
+                lt, rt = (torch.from_numpy(x.astype(np.float32) / np.float32(256)).to(dev)
+                          for x in (left, right))
+            else:
+                lt, rt = (torch.from_numpy(x).to(dev) for x in (l64, r64))
+                got, counts = counted(lambda: artifacts_to_numpy(ClassicPipeline(p)(lt, rt)))
+            kernel = "match_score_edges" if rule == "exact" else "match_and_score"
+            check(set(counts) == {kernel, "fill_web_holes_range"},
+                  f"oracle phase {mode.value}/{rule} launches {counts}")
+            for k, v in want.items():
+                check(np.array_equal(got[k], v),
+                      f"card {mode.value}/{rule} {k} differs from the oracle")
+            check(int(got["min_elevation"]) == int(want["web-2"].min())
+                  and int(got["max_elevation"]) == int(want["web-2"].max()),
+                  f"card {mode.value}/{rule} elevations differ from the oracle's web")
+            card_ms.append(cuda_time_ms(lambda: ClassicPipeline(p)(lt, rt), 3))
+            notes.append(f"{mode.value}/{rule} ({lt.dtype}; {counts}): oracle "
+                         f"{oracle_s[-1]:.2f} s, card {card_ms[-1]:.4f} ms")
+        del lt, rt
+        (cli_out, cli_wall), = finished(cli_job).values()
+        ppms = {f.name: f.read_bytes() for f in sorted((tmp / "oracle").iterdir())}
+        check(sorted(ppms) == sorted(f"{n}.ppm" for n in (
+            "edges-1", "edges-2", "score_best-0", "web-1", "web-2", "output-0")),
+            f"CLI --tier oracle wrote {sorted(ppms)}")
+        check(timing_line(cli_out) is not None, f"CLI --tier oracle timing line {cli_out!r}")
+        card = artifacts_to_numpy(ClassicPipeline(rparams)(
+            *(torch.from_numpy(x / 256.0).to(dev) for x in cli_pair)))
+        for name, data in ppms.items():
+            key = "score_best" if name == "score_best-0.ppm" else name[:-4]
+            check(data == ppm_bytes(card[key], artifact_ppm_type(name[:-4])),
+                  f"CLI --tier oracle {name} differs from the card's reference rule on float64")
+    print(f"[29 oracle] oracle.run_pipeline (numpy, float64) on a {SIZE}x{SIZE} blob_scene pair, "
+          f"D={SHIFTS}, sw 21, times 32, lines 10 == the card's six artifacts and elevations "
+          f"({'; '.join(notes)}; card ms per pair, device-resident); python -m "
+          f"stereomatching_tpu_torch.cli --tier oracle on phase 18's pair: rc 0, timing line, "
+          f"six PPMs ({', '.join(f'{k} {len(v)} B' for k, v in ppms.items())}) == the card's "
+          f"reference rule on float64 brightness, {cli_wall:.3f} s wall; {smi}", flush=True)
+
+    # Phase 30: the quality tool on the card.  A 1024² blob_scene (max
+    # disparity 48) as PNGs, its ground truth as PFM and as a 16-bit
+    # disparity PNG (port's data.formats); tools/eval_quality_torch.py
+    # on them with --device cuda (box; SGM census with the PNG truth) and
+    # --device cpu (box), and at --synthetic 32 (270x480) on both devices
+    # for both routes, all seven started together; cuda == cpu key for
+    # key, and the card's reports == the same pipelines and metrics in
+    # this process, launches counted.
+    left, right, gt = blob_scene(SIZE, SIZE, seed=SEED, max_disparity=48)
+    bparams = ModernParams(num_disparities=SHIFTS)
+    sparams = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, ThreadPoolExecutor(7) as pool:
+        tmp = Path(tmp)
+        files = {n: str(tmp / n) for n in ("L.png", "R.png", "gt.pfm", "gt.png")}
+        write_png_gray(files["L.png"], left)
+        write_png_gray(files["R.png"], right)
+        write_pfm(files["gt.pfm"], gt.astype(np.float32))
+        write_disparity_png(files["gt.png"], gt)
+        truth = {"pfm": read_ground_truth(files["gt.pfm"]).astype(np.float64),
+                 "png": read_ground_truth(files["gt.png"]).astype(np.float64)}
+        check(np.array_equal(truth["pfm"], gt), "PFM ground truth does not read back")
+        check(np.array_equal(np.isnan(truth["png"]), gt == 0)
+              and np.array_equal(truth["png"][gt > 0], gt[gt > 0]),
+              "16-bit PNG ground truth does not read back (0 == invalid)")
+        tool = "tools/eval_quality_torch.py"
+        sgm_flags = ["--aggregation", "sgm", "--cost", "census"]
+        pair = [files["L.png"], files["R.png"], "--disparities", str(SHIFTS)]
+        jobs = start_jobs(pool, {
+            "box cuda": [tool, *pair[:2], files["gt.pfm"], *pair[2:], "--device", "cuda"],
+            "box cpu": [tool, *pair[:2], files["gt.pfm"], *pair[2:], "--device", "cpu"],
+            "sgm cuda": [tool, *pair[:2], files["gt.png"], *pair[2:], *sgm_flags,
+                         "--device", "cuda"],
+            "box synthetic cuda": [tool, "--synthetic", "32", "--device", "cuda"],
+            "box synthetic cpu": [tool, "--synthetic", "32", "--device", "cpu"],
+            "sgm synthetic cuda": [tool, "--synthetic", "32", *sgm_flags, "--device", "cuda"],
+            "sgm synthetic cpu": [tool, "--synthetic", "32", *sgm_flags, "--device", "cpu"],
+        })
+        lt, rt = (torch.from_numpy(x.astype(np.int32)).to(dev) for x in (left, right))
+        expect, q_counts = {}, {}
+        for label, p, g in (("box", bparams, truth["pfm"]), ("sgm", sparams, truth["png"])):
+            out, q_counts[label] = counted(lambda: artifacts_to_numpy(ModernPipeline(p)(lt, rt)))
+            expect[label] = {"valid_pixels": disparity_report(out["subpixel"], g, out["valid"]),
+                             "filled_all_pixels": disparity_report(out["filled"], g)}
+        check(set(q_counts["box"]) == {"disparity", "fill_invalid"}
+              and set(q_counts["sgm"]) == {"sgm_volume", "sgm_directional", "sgm_tail",
+                                           "fill_invalid"}, f"quality routes' launches {q_counts}")
+        done = finished(jobs)
+    reports = {k: json.loads(v[0]) for k, v in done.items()}
+    for label in ("box", "box synthetic", "sgm synthetic"):
+        check(reports[f"{label} cuda"] == reports[f"{label} cpu"],
+              f"eval_quality_torch {label}: --device cuda report != --device cpu")
+    for label in ("box", "sgm"):
+        got = {k: reports[f"{label} cuda"][k] for k in expect[label]}
+        check(got == expect[label], f"eval_quality_torch {label} on the card != in process")
+    for label, rep in reports.items():
+        v = rep["valid_pixels"]
+        check(all(np.isfinite(x) for x in v.values()) and 0 < v["coverage"] <= 1
+              and 0 <= v["bad2"] <= v["bad1"] <= 1, f"{label} report {v}")
+
+    def summary(label):
+        v = reports[label]["valid_pixels"]
+        return (f"{label}: bad-1 {v['bad1']:.4f}, bad-2 {v['bad2']:.4f}, EPE {v['epe']:.4f}, "
+                f"coverage {v['coverage']:.4f}, {done[label][1]:.2f} s wall")
+
+    print(f"[30 quality tool] tools/eval_quality_torch.py on a {SIZE}x{SIZE} blob_scene (max "
+          f"disparity 48; PFM and 16-bit PNG truth) and --synthetic 32 (270x480): --device cuda "
+          f"reports == --device cpu key for key (box on the files; box and SGM on the synthetic "
+          f"scene), and == the same pipelines and metrics in process (launches {q_counts}); "
+          + "; ".join(summary(k) for k in reports) + f" (seven processes at once); {smi}",
+          flush=True)
+
+
+def timing_line(stdout: str):
+    """The reference's timing line of a SIZE x SIZE pair at the end of
+    ``stdout`` as a match (elapsed in group 1), or None."""
+    lines = stdout.strip().splitlines()
+    return re.match(rf"^width = {SIZE}, height = {SIZE}, t1 = [\d.]+, t2 = [\d.]+, "
+                    r"elapsed = ([\d.]+)$", lines[-1]) if lines else None
 
 
 def main() -> None:
@@ -820,18 +1171,14 @@ def main() -> None:
     from stereomatching_tpu_torch.utils.imageio import (
         artifact_ppm_type, ppm_bytes, write_png_gray)
 
-    timing_re = re.compile(r"^width = 1024, height = 1024, t1 = [\d.]+, t2 = [\d.]+, "
-                           r"elapsed = ([\d.]+)$")
-
     def run_cli(*args):
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "stereomatching_tpu_torch.cli", *args],
                              cwd=ROOT, capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
         check(res.returncode == 0, f"CLI {args[2:]} exited {res.returncode}: {res.stderr[-2000:]}")
-        line = res.stdout.strip().splitlines()[-1]
-        m = timing_re.match(line)
-        check(m is not None, f"CLI timing line {line!r}")
+        m = timing_line(res.stdout)
+        check(m is not None, f"CLI timing line in {res.stdout[-300:]!r}")
         return wall, float(m.group(1))
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1405,6 +1752,9 @@ def main() -> None:
                              "bound_ms": kb[0], "bound_by": kb[1]})
     del pix, codes
     print(json.dumps({"k7_instances": k7_instances, "card": smi}), flush=True)
+
+    # Phases 28-30: the input and quality side at 1024², D=64.
+    input_and_quality_phases(dev, smi, scenes_cli)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

@@ -20,7 +20,13 @@ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use:
   diagonals) and ``ops.fused_sgm.sgm_tail`` (argmin, sub-pixel, right
   view, second best); on both ``ops.fused_diffusion.fill_invalid``
   (validity-aware hole fill);
-* the reference-compatible CLI, ``python -m stereomatching_tpu_torch.cli``.
+* the reference-compatible CLI, ``python -m stereomatching_tpu_torch.cli``
+  (``--tier oracle`` runs the numpy serial oracle, ``oracle/``);
+* the input and quality side: ``data`` (``discover_pairs``,
+  ``StereoPairDataset``, ``BatchLoader``, which places batches on the card
+  through page-locked non-blocking copies; PFM and 16-bit disparity PNG
+  ground truth), ``utils/synthetic.py`` (scenes with known disparity) and
+  ``utils/metrics.py`` (bad-pixel rate, EPE).
 
 Each kernel wrapper runs its plain torch version on CPU tensors and the
 kernel on CUDA tensors (no fallback).  The port owns its parameters
@@ -32,6 +38,7 @@ from stereomatching_tpu_torch.config import BoundaryMode, ModernParams, StereoPa
 __all__ = [
     "BoundaryMode", "StereoParams", "ModernParams",
     "Matcher", "ClassicPipeline", "ModernMatcher", "ModernPipeline",
+    "StereoPairDataset", "BatchLoader", "discover_pairs",
 ]
 
 
@@ -50,4 +57,8 @@ def __getattr__(name):
         from stereomatching_tpu_torch.models.modern import ModernPipeline
 
         return ModernPipeline
+    if name in ("StereoPairDataset", "BatchLoader", "discover_pairs"):
+        from stereomatching_tpu_torch import data
+
+        return getattr(data, name)
     raise AttributeError(name)

@@ -2,7 +2,8 @@
 program surface:
 
     python -m stereomatching_tpu_torch.cli IMG1 IMG2 [threshold]
-        [square_width] [times] [lines] [--mode wrap|ghost] [--tier cuda|cpu] ...
+        [square_width] [times] [lines] [--mode wrap|ghost]
+        [--tier cuda|cpu|sharded|oracle] ...
 
 Positional arguments, flags, validation messages, artifact dumps and the
 final timing line (``width = %d, height = %d, t1 = %f, t2 = %f, elapsed =
@@ -14,8 +15,12 @@ reference CLI (src/stereo.c:335-392).
 the GPU through the port's CUDA kernels, ``cpu`` runs their plain torch
 versions, ``sharded`` runs the sharded tier over every visible GPU (rows
 split over as many shards as the image height and halo reach allow, the
-JAX CLI's choice; one row shard on a one-GPU host).  ``cuda`` and
-``sharded`` on a host without a GPU are an error, never a fallback.  A
+JAX CLI's choice; one row shard on a one-GPU host), ``oracle`` runs the
+classic pipeline through the numpy serial oracle (``oracle/``) on float64
+brightness, on no device and without importing torch (the role of the
+reference's serial ``stereomatch``; refused for ``--pipeline modern``).
+``cuda`` and ``sharded`` on a host without a GPU are an error, never a
+fallback.  A
 config a kernel does not take (a square width above 255, a tile past the
 card's shared memory, more than 256 disparities on the box or SGM route)
 runs that stage as plain torch ops on the GPU, chosen before any launch,
@@ -60,10 +65,10 @@ def _parse(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("lines", nargs="?", type=int, default=None)
     p.add_argument("--mode", choices=["wrap", "ghost"], default="wrap")
     p.add_argument(
-        "--tier", choices=["cuda", "cpu", "sharded"], default="cuda",
+        "--tier", choices=["cuda", "cpu", "sharded", "oracle"], default="cuda",
         help="cuda = the GPU with the CUDA kernels; cpu = their plain "
         "torch versions on the CPU; sharded = the sharded tier over every "
-        "visible GPU",
+        "visible GPU; oracle = the numpy serial oracle (classic only)",
     )
     p.add_argument(
         "--pipeline",
@@ -175,6 +180,14 @@ def _run_sharded(left, right, params: StereoParams, devices):
     return {k: v[0] for k, v in out.items()}
 
 
+def _run_oracle(left, right, params: StereoParams, collect: bool):
+    from stereomatching_tpu_torch.oracle import pipeline as oracle
+
+    return oracle.run_pipeline(
+        left.astype(np.float64), right.astype(np.float64), params, collect=collect
+    )
+
+
 def _run_classic(left, right, params: StereoParams, collect: bool, device):
     import torch
 
@@ -205,11 +218,8 @@ _UPSTREAM_FIELDS = (
 
 
 def _run_resume(path: str, params: StereoParams, device):
-    """Resume the finishing phases from a --save-artifacts checkpoint."""
-    import torch
-
-    from stereomatching_tpu_torch.interop import artifacts_to_numpy
-    from stereomatching_tpu_torch.models.classic import build_classic_finish_pipeline
+    """Resume the finishing phases from a --save-artifacts checkpoint
+    (``device`` None: through the oracle's)."""
     from stereomatching_tpu_torch.utils.artifacts import load_artifacts
 
     ck = load_artifacts(path)
@@ -224,10 +234,22 @@ def _run_resume(path: str, params: StereoParams, device):
                 f"{path}: checkpoint params differ in {bad} — the saved "
                 f"web is not valid for this run"
             )
-    winner = torch.from_numpy(np.asarray(ck["web-1"]).astype(np.int32)).to(device)
-    fin = artifacts_to_numpy(build_classic_finish_pipeline(params)(winner))
-    fin.pop("min_elevation", None)
-    fin.pop("max_elevation", None)
+    winner = np.asarray(ck["web-1"]).astype(np.int32)
+    if device is None:
+        from stereomatching_tpu_torch.oracle import pipeline as oracle
+
+        web = oracle.fill_web_holes(winner, params.times)
+        fin = {"web-2": web, "output-0": oracle.draw_contour(web, params.lines)[0]}
+    else:
+        import torch
+
+        from stereomatching_tpu_torch.interop import artifacts_to_numpy
+        from stereomatching_tpu_torch.models.classic import build_classic_finish_pipeline
+
+        fin = artifacts_to_numpy(
+            build_classic_finish_pipeline(params)(torch.from_numpy(winner).to(device)))
+        fin.pop("min_elevation", None)
+        fin.pop("max_elevation", None)
     arts = {
         k: np.asarray(v)
         for k, v in ck.items()
@@ -346,14 +368,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             file=sys.stderr,
         )
         return 1
-    devices = None
+    devices = device = None
     try:
-        from stereomatching_tpu_torch.utils.device import resolve_device
-
         if args.tier == "sharded":
             devices = sharded_devices()
             device = devices[0]
-        else:
+        elif args.tier != "oracle":
+            from stereomatching_tpu_torch.utils.device import resolve_device
+
             device = resolve_device(args.tier)
     except RuntimeError as e:
         print(f"error: --tier {args.tier}: {e}", file=sys.stderr)
@@ -366,6 +388,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 "flags (the modern pipeline dumps disparity.npz)",
                 file=sys.stderr,
             )
+            return 1
+        if args.tier == "oracle":
+            # The JAX CLI's message (stereomatching_tpu/cli.py:337).
+            print("error: --tier oracle is not available for --pipeline modern",
+                  file=sys.stderr)
             return 1
         t1 = time.monotonic()
         try:
@@ -386,12 +413,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
-    if not args.resume:
+    if not args.resume and args.tier != "oracle":
         from stereomatching_tpu_torch.models.classic import plain_stages
 
         _note_plain_stages(plain_stages(params, sharded=devices is not None), args.tier)
-    left = to_brightness(img1, np.float32)
-    right = to_brightness(img2, np.float32)
+    dtype = np.float64 if args.tier == "oracle" else np.float32
+    left = to_brightness(img1, dtype)
+    right = to_brightness(img2, dtype)
 
     # Timing mirrors the reference: excludes image load, includes artifact
     # writes unless --no-writes (src/stereo.c:297-324, Makefile:23).
@@ -402,7 +430,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         elif devices is not None:
             arts = _run_sharded(left, right, params, devices)
         else:
-            arts = _run_classic(left, right, params, args.collect, device)
+            if args.tier == "oracle":
+                arts = _run_oracle(left, right, params, args.collect)
+            else:
+                arts = _run_classic(left, right, params, args.collect, device)
             if args.save_artifacts:
                 from stereomatching_tpu_torch.utils.artifacts import save_artifacts
 

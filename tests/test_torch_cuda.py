@@ -1127,3 +1127,66 @@ def test_cli_square_width_301_cuda_equals_cpu(cuda_device, tmp_path, capsys):
         with open(os.path.join(outs["cuda"], f), "rb") as x, \
                 open(os.path.join(outs["cpu"], f), "rb") as y:
             assert x.read() == y.read(), f
+
+
+def _png_dataset(root, n, shape, seed):
+    from stereomatching_tpu_torch.data import StereoPairDataset
+    from stereomatching_tpu_torch.utils.imageio import write_png_gray
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        for side in ("left", "right"):
+            write_png_gray(str(root / f"p{i:02d}_{side}.png"),
+                           rng.integers(0, 256, shape, dtype=np.uint8))
+    return StereoPairDataset.from_root(str(root))
+
+
+def _assert_batches_equal(got, host):
+    assert len(got) == len(host)
+    for (lb, rb, kept), (hl, hr, hk) in zip(got, host):
+        assert kept == hk
+        for a, b in ((lb, hl), (rb, hr)):
+            assert a.device.type == "cuda" and a.dtype == torch.float32
+            assert torch.equal(a.cpu().view(torch.int32), torch.from_numpy(b).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=4), dict(batch_size=3, prefetch=1, num_threads=1),
+    dict(batch_size=4, pad_to=(40, 70), drop_last=True),
+])
+def test_batch_loader_pinned_copies_equal_host_batches(cuda_device, tmp_path, kw):
+    """The loader's batches on the card (uint8 staged in page-locked
+    memory, copied without blocking on its own stream, divided by 256
+    there) equal the numpy batches of ``device_put=False`` bit for bit."""
+    from stereomatching_tpu_torch.data import BatchLoader
+
+    ds = _png_dataset(tmp_path, 9, (33, 65), 50)
+    host = list(BatchLoader(ds, device_put=False, **kw))
+    loader = BatchLoader(ds, device=cuda_device, **kw)
+    got = list(loader)
+    _assert_batches_equal(got, host)
+    assert 1 <= loader._pool.allocated <= len(got)
+    assert all(buf.is_pinned() for free in loader._pool._free.values() for buf, _ in free)
+
+
+@pytest.mark.cuda
+def test_batch_loader_reuses_a_host_buffer_only_after_its_copy(cuda_device, tmp_path):
+    """With each copy queued behind a long sleep on the copy stream, one
+    worker must wait for a buffer's copy before writing the next batch
+    into it, and the consumer's stream must wait for the copy: every batch
+    still equals its numpy batch, through one page-locked buffer."""
+    from stereomatching_tpu_torch.data import BatchLoader
+
+    class SlowCopies(BatchLoader):
+        def _upload(self, lefts, rights):
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(50_000_000)
+            return super()._upload(lefts, rights)
+
+    ds = _png_dataset(tmp_path, 10, (64, 96), 51)
+    host = list(BatchLoader(ds, 2, device_put=False))
+    loader = SlowCopies(ds, 2, device=cuda_device, num_threads=1, prefetch=1)
+    got = [(lb.clone(), rb.clone(), kept) for lb, rb, kept in loader]
+    _assert_batches_equal(got, host)
+    assert loader._pool.allocated == 1 and len(got) == 5

@@ -190,22 +190,37 @@ def test_classic_routes_pass_k2_their_bound(monkeypatch, rule):
 
 
 def test_import_does_not_load_jax():
-    """Importing every module of the port (and its lazy exports) loads
-    neither jax nor any module of the JAX package."""
+    """Importing the package loads no torch; importing every module of the
+    port (and its lazy exports), and loading the port's quality tool and
+    demos as modules (without running them), loads neither jax nor any
+    module of the JAX package."""
     code = (
-        "import pkgutil, sys\n"
+        "import importlib.util, pkgutil, sys\n"
         "import stereomatching_tpu_torch as pkg\n"
+        "assert 'torch' not in sys.modules\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    __import__(n)\n"
         "from stereomatching_tpu_torch import (\n"
-        "    Matcher, ClassicPipeline, ModernMatcher, ModernPipeline, ModernParams)\n"
+        "    Matcher, ClassicPipeline, ModernMatcher, ModernPipeline, ModernParams,\n"
+        "    StereoPairDataset, BatchLoader, discover_pairs)\n"
         "import stereomatching_tpu_torch.ops.fused_modern\n"
         "import stereomatching_tpu_torch.cli, stereomatching_tpu_torch.utils.imageio\n"
         "import stereomatching_tpu_torch.utils.artifacts\n"
-        "for m in ('ops.fused_modern', 'cli', 'utils.imageio', 'utils.artifacts'):\n"
+        "import stereomatching_tpu_torch.data, stereomatching_tpu_torch.data.loader\n"
+        "import stereomatching_tpu_torch.data.formats, stereomatching_tpu_torch.oracle\n"
+        "import stereomatching_tpu_torch.utils.synthetic, stereomatching_tpu_torch.utils.metrics\n"
+        "for m in ('ops.fused_modern', 'cli', 'utils.imageio', 'utils.artifacts', 'data',\n"
+        "          'data.loader', 'data.formats', 'oracle', 'oracle.pipeline',\n"
+        "          'utils.synthetic', 'utils.metrics'):\n"
         "    assert 'stereomatching_tpu_torch.' + m in names, names\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 27, names\n"
+        "for f in ('tools/eval_quality_torch.py', 'examples/torch_classic_demo.py',\n"
+        "          'examples/torch_modern_demo.py', 'examples/torch_serving_demo.py'):\n"
+        "    spec = importlib.util.spec_from_file_location(f.split('/')[1][:-3], f)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'stereomatching_tpu' or m.startswith('stereomatching_tpu.'))\n"
         "assert not bad, bad\n"
