@@ -39,7 +39,14 @@ its sweep of windows, D and costs beside each instance's bound
 decode + H2D pace beside the device's (a ``{"loader": ...}`` line); the
 numpy oracle against the card's classic artifacts, and the CLI's
 ``--tier oracle``; ``tools/eval_quality_torch.py`` on the card against
-the CPU.
+the CPU.  Then the measurement and cross-check side, in this process:
+``python -m stereomatching_tpu_torch.bench`` at its defaults and the
+roofline of the classic (batch 8) and SGM (batch 32) routes at 1024²,
+every share of the bound at most 100% (a ``{"roofline": ...}`` line with
+the card's name and power limit); ``tools/scaling_bench_torch.py`` at 1,
+2 and 4 row shards stacked on ``cuda:0``; and ``tools/knife_edge_torch.py``'s
+gate on the CLI's exact-rule dumps (K1, K2) against the oracle's
+reference-rule ones, both modes.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -523,6 +530,142 @@ def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
           flush=True)
 
 
+def measurement_phases(dev, smi: str, cli_pair) -> None:
+    """Phases 31-33: the measurement library on the card (``python -m
+    stereomatching_tpu_torch.bench`` at its defaults, the roofline of the
+    classic and SGM routes), the weak-scaling tool on ``cuda:0``, and the
+    knife-edge gate on the card's exact-rule CLI dumps against the
+    oracle's reference-rule ones, all in this process.  ``cli_pair``:
+    phase 18's (left, right) uint8 pair."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from stereomatching_tpu_torch import cli
+    from stereomatching_tpu_torch.bench import __main__ as bench_main
+    from stereomatching_tpu_torch.bench import roofline
+    from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
+    from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_sgm
+    from stereomatching_tpu_torch.utils.imageio import write_png_gray
+
+    wrappers = {"match_score_edges": fused.match_score_edges,
+                "match_and_score": fused.match_and_score,
+                "match_and_score_prehalo": fused.match_and_score_prehalo,
+                "fill_web_holes_range": fused_diffusion.fill_web_holes_range,
+                "fill_web_holes_step": fused_diffusion.fill_web_holes_step,
+                "sgm_volume": fused_sgm.sgm_volume,
+                "sgm_directional": fused_sgm.sgm_directional,
+                "sgm_tail": fused_sgm.sgm_tail,
+                "fill_invalid": fused_diffusion.fill_invalid}
+
+    def counted(fn):
+        """-> (fn(), its stdout, {wrapper: launches during it}), counted from zero."""
+        for w in wrappers.values():
+            w.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        return out, buf.getvalue(), {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    def tool(name):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod  # the gate's dataclass resolves through sys.modules
+        spec.loader.exec_module(mod)
+        return mod
+
+    def json_lines(text):
+        return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+    # Phase 31: the bench CLI at its defaults (phases at 1080x1920, the
+    # reference's five sizes, D=30, ghost, exact rule, 3 iterations), then
+    # the roofline of the classic routes (batch 8) and of the SGM route
+    # (batch 32) at 1024², D=64.  ``verdict`` raises on a share above 100%.
+    t0 = time.perf_counter()
+    rc, out, b_counts = counted(lambda: bench_main.main(["--json"]))
+    check(rc == 0, f"python -m stereomatching_tpu_torch.bench exited {rc}")
+    bench = json_lines(out)
+    sizes = [r for r in bench if "size" in r]
+    check([r["size"] for r in sizes] == ["240x135", "480x270", "960x540", "1920x1080", "3840x2160"]
+          and all(r["tier"] == "kernels" and r["mean_s"] > 0 for r in sizes),
+          f"bench size lines {sizes}")
+    check(set(b_counts) == {"match_score_edges", "match_and_score", "fill_web_holes_range"},
+          f"bench launches {b_counts}")
+    classic_rows, _, c_counts = counted(lambda: roofline.measure(
+        SIZE, SIZE, SHIFTS, BATCH, device=dev))
+    sgm_rows, _, s_counts = counted(lambda: roofline.measure_sgm(
+        SIZE, SIZE, SHIFTS, SGM_BENCH_BATCH, device=dev))
+    check(set(c_counts) == {"match_score_edges", "match_and_score", "fill_web_holes_range"},
+          f"roofline classic launches {c_counts}")
+    check(set(s_counts) == {"sgm_volume", "sgm_directional", "sgm_tail", "fill_invalid"},
+          f"roofline SGM launches {s_counts}")
+    info = roofline.card(dev)
+    print(f"[31 bench and roofline] {smi}: python -m stereomatching_tpu_torch.bench --json: "
+          + ", ".join(f"{r['size']} {r['mean_s'] * 1e3:.4f} ms ({r['gpixel_passes_per_s']:.1f} "
+                      f"Gpixel-passes/s)" for r in sizes)
+          + "; roofline ms/pair (share of bound): "
+          + ", ".join(f"{r['phase']} {r['ms_per_pair']:.4f} ({r['share_of_bound_pct']:.1f}%)"
+                      for r in classic_rows + sgm_rows)
+          + f"; launches bench {b_counts}, classic {c_counts}, SGM {s_counts}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"roofline": {"card": info["name"], "power_limit": info["power_limit"],
+                                   "classic": classic_rows, "sgm": sgm_rows, "bench": bench}}),
+          flush=True)
+
+    # Phase 32: the weak-scaling tool on cuda:0 at 1, 2 and 4 row shards
+    # (256 rows x 1024 a shard, batch 2), the shards stacked on the card.
+    t0 = time.perf_counter()
+    rc, out, w_counts = counted(lambda: tool("scaling_bench_torch").main(["--max-shards", "4"]))
+    scaling = json.loads(out)
+    check(rc == 0 and [r["shards"] for r in scaling["results"]] == [1, 2, 4]
+          and all(r["devices"] == 1 and np.isfinite(r["checksum"]) for r in scaling["results"]),
+          f"scaling tool: {scaling}")
+    check(set(w_counts) == {"match_and_score_prehalo", "fill_web_holes_step"},
+          f"scaling tool launches {w_counts}")
+    print(f"[32 scaling tool] {smi}: tools/scaling_bench_torch.py on cuda:0: "
+          + ", ".join(f"{r['shards']} shards {r['ms_per_batch']:.3f} ms/batch "
+                      f"({r['mpix_per_s']:.1f} Mpix/s, efficiency "
+                      f"{r['weak_scaling_efficiency']:.3f})" for r in scaling["results"])
+          + f"; launches {w_counts}; {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"scaling_one_card": scaling}), flush=True)
+
+    # Phase 33: the knife-edge gate at 1024² on phase 18's pair, both
+    # modes: the CLI's --tier cuda --edge-rule exact dumps (K1, K2) against
+    # its --tier oracle --edge-rule reference ones (the CLI's defaults
+    # otherwise: D=30, sw 21, times 32, lines 10).
+    t0 = time.perf_counter()
+    gate = tool("knife_edge_torch")
+    notes = []
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        a, b = str(tmp / "a.png"), str(tmp / "b.png")
+        write_png_gray(a, cli_pair[0])
+        write_png_gray(b, cli_pair[1])
+        for mode in ("ghost", "wrap"):
+            ours, ref = str(tmp / f"ours_{mode}"), str(tmp / f"ref_{mode}")
+            rc, _, k_counts = counted(lambda: cli.main(
+                [a, b, "--tier", "cuda", "--edge-rule", "exact", "--mode", mode,
+                 "--outdir", ours]))
+            check(rc == 0 and set(k_counts) == {"match_score_edges", "fill_web_holes_range"},
+                  f"CLI --tier cuda {mode}: rc {rc}, launches {k_counts}")
+            rc, _, _ = counted(lambda: cli.main(
+                [a, b, "--tier", "oracle", "--edge-rule", "reference", "--mode", mode,
+                 "--outdir", ref]))
+            check(rc == 0, f"CLI --tier oracle {mode}: rc {rc}")
+            params = StereoParams(mode=BoundaryMode(mode), edge_rule="exact")
+            n_tie, n_ok = gate.gate_pair(ref, ours, a, b, "0.15", params, 2e-4, verbose=False)
+            check(n_ok == len(gate.DOWNSTREAM), f"knife-edge {mode}: {n_ok} downstream equal")
+            notes.append(f"{mode}: {n_tie} edge diff(s), all proven ties, {n_ok}/"
+                         f"{len(gate.DOWNSTREAM)} downstream byte-identical (launches {k_counts})")
+    print(f"[33 knife-edge gate] {SIZE}x{SIZE}, the card's exact-rule CLI dumps against the "
+          f"oracle's reference-rule ones: {'; '.join(notes)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def timing_line(stdout: str):
     """The reference's timing line of a SIZE x SIZE pair at the end of
     ``stdout`` as a match (elapsed in group 1), or None."""
@@ -554,7 +697,7 @@ def main() -> None:
     from stereomatching_tpu_torch.utils.bench import (
         HBM_BYTES_PER_S, INT32_OPS_PER_S, K2_BENCH_KERNELS, K3_BENCH_KERNELS, K5_BENCH_KERNELS,
         K7_BENCH_KERNELS, K7_SWEEP, bound, k1_bound_ms,
-        k2_bound_ms, k3_bound_ms, k5_bound_ms, k6_bound_ms, k6_filled, k7_bound_ms,
+        k2_bound_ms, k3_bound_ms, k4_bound_ms, k5_bound_ms, k6_bound_ms, k6_filled, k7_bound_ms,
         k8_bound_ms, k9_bound_ms)
     from stereomatching_tpu_torch.utils.build import build_all
 
@@ -1619,12 +1762,15 @@ def main() -> None:
             k4_passes.append({"direction": direction, "reverse": reverse, "accumulate": acc,
                               "ms": pms, "bytes": nbytes, "GB_per_s": nbytes / pms / 1e6,
                               "floor_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    k4_sizes = (vol.element_size(), agg.element_size())
     del vol, agg
     # The byte floor of one pass per path, 4 and 8 paths: the first pass
-    # written, the rest added (k4_passes[2 i] is path i written, [2 i + 1]
-    # added).
-    k4_floors = {f"floor_ms_{n}path": k4_passes[0]["floor_ms"] + sum(
-        k4_passes[2 * i + 1]["floor_ms"] for i in range(1, n)) for n in (4, 8)}
+    # written, the rest added (``k4_bound_ms``, which the bytes bind).
+    k4_floors = {}
+    for n in (4, 8):
+        k4_floor = k4_bound_ms(nvox, n, *k4_sizes)
+        check(k4_floor[1] == "bytes", f"K4's {n}-path bound is set by {k4_floor[1]}")
+        k4_floors[f"floor_ms_{n}path"] = k4_floor[0]
     print(f"[27 K4 passes] {smi}: 8x{SIZE}x{SIZE}, D={SHIFTS}, int8 volume, int16 aggregate: "
           + ", ".join(f"dir {p['direction']} rev {int(p['reverse'])} acc {int(p['accumulate'])} "
                       f"{p['ms']:.4f} ms ({p['GB_per_s']:.0f} GB/s, floor {p['floor_ms']:.4f})"
@@ -1755,6 +1901,8 @@ def main() -> None:
 
     # Phases 28-30: the input and quality side at 1024², D=64.
     input_and_quality_phases(dev, smi, scenes_cli)
+    # Phases 31-33: the measurement and cross-check side.
+    measurement_phases(dev, smi, scenes_cli)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

@@ -1,5 +1,7 @@
-"""The card's peak rates and the bounds that ``chip_smoke.py`` and
-``tools/profile_torch_pipeline.py`` hold the kernels' times against, the
+"""The card's peak rates and the bounds that ``chip_smoke.py``,
+``tools/profile_torch_pipeline.py`` and ``bench/roofline.py`` hold the
+kernels' times against (each kernel's ``*_work``: bytes, operations and
+their unit's peak rate, and its ``*_bound_ms``), the
 K7 instances both of them time and the bench kernels whose SASS both
 count, kept in one place."""
 
@@ -20,6 +22,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 POPC_PER_S = 132 * 16 * 1.98e9
 FP32_OPS_PER_S = 67e12
 FP32_UNFUSED_OPS_PER_S = 132 * 128 * 1.98e9
+# NVLink 4 of the H100 SXM (NVIDIA data sheet): 900 GB/s to the other
+# cards of the host in all, which is 450 GB/s each way.
+NVLINK_BYTES_PER_S_EACH_WAY = 450e9
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -98,22 +103,34 @@ def loop_ops(npix: int, d: int, subpixel: bool = False) -> float:
     return (LOOP_OPS + (SUBPIXEL_OPS if subpixel else 0)) * npix * d
 
 
+def k1_work(npix: int, d: int, subpixel: bool = False) -> tuple[float, float, float]:
+    """K1's work for ``npix`` pixels at ``d`` shifts -> (bytes, ops, the
+    ops' peak rate): two float32 brightness planes in, best, winner and
+    both edge planes out (24 B per pixel; 28 with the float32 sub-pixel
+    plane); the shift loop's ``loop_ops``.  Its exact-rule edge stage (a
+    few tens of ops per pixel and view, with float conversions) is left
+    out, so this is the loop's floor alone."""
+    return (28 if subpixel else 24) * npix, loop_ops(npix, d, subpixel), INT32_OPS_PER_S
+
+
 def k1_bound_ms(npix: int, d: int, subpixel: bool = False) -> tuple[float, str]:
-    """K1's least time on the card for ``npix`` pixels at ``d`` shifts:
-    two float32 brightness planes in, best, winner and both edge planes
-    out (24 B per pixel; 28 with the float32 sub-pixel plane); the shift
-    loop's ``loop_ops``.  Its exact-rule edge stage (a few tens of ops per
-    pixel and view, with float conversions) is left out, so this is the
-    loop's floor alone.  -> (ms, "operations" or "bytes")."""
-    return bound((28 if subpixel else 24) * npix, loop_ops(npix, d, subpixel), INT32_OPS_PER_S)
+    """K1's least time on the card (``k1_work``).  -> (ms, "operations"
+    or "bytes")."""
+    return bound(*k1_work(npix, d, subpixel))
+
+
+def k8_work(npix: int, d: int, subpixel: bool = False) -> tuple[float, float, float]:
+    """K8's work for ``npix`` pixels at ``d`` shifts -> (bytes, ops, the
+    ops' peak rate): two int32 edge maps in, best and winner out (16 B
+    per pixel; 20 with the float32 sub-pixel plane); the shift loop's
+    ``loop_ops``."""
+    return (20 if subpixel else 16) * npix, loop_ops(npix, d, subpixel), INT32_OPS_PER_S
 
 
 def k8_bound_ms(npix: int, d: int, subpixel: bool = False) -> tuple[float, str]:
-    """K8's least time on the card for ``npix`` pixels at ``d`` shifts:
-    two int32 edge maps in, best and winner out (16 B per pixel; 20 with
-    the float32 sub-pixel plane); the shift loop's ``loop_ops``.  ->
-    (ms, "operations" or "bytes")."""
-    return bound((20 if subpixel else 16) * npix, loop_ops(npix, d, subpixel), INT32_OPS_PER_S)
+    """K8's least time on the card (``k8_work``).  -> (ms, "operations"
+    or "bytes")."""
+    return bound(*k8_work(npix, d, subpixel))
 
 
 def k9_bound_ms(in_cells: int, kept_px: int, halo_px: int, d: int) -> tuple[float, str]:
@@ -128,34 +145,72 @@ def k9_bound_ms(in_cells: int, kept_px: int, halo_px: int, d: int) -> tuple[floa
                  loop_ops(kept_px, d) + (1 + 2 / 32) * halo_px * d, INT32_OPS_PER_S)
 
 
-def k3_bound_ms(npix: int, d: int, volume_bytes: int, cost: str = "census") -> tuple[float, str]:
-    """K3's least time on the card for ``npix`` pixels at ``d``
-    disparities: two int32 code (or pixel) planes in (8 B per pixel), the
-    volume out (``volume_bytes`` per element); per element 2 int32 ops (an
-    XOR and a population count for census, a difference and an absolute
-    value for SAD), census also the larger of that and the population
-    counts on their own unit.  -> (ms, "operations" or "bytes")."""
+def k3_work(npix: int, d: int, volume_bytes: int,
+            cost: str = "census") -> tuple[float, float, float]:
+    """K3's work for ``npix`` pixels at ``d`` disparities -> (bytes, ops,
+    the ops' peak rate): two int32 code (or pixel) planes in (8 B per
+    pixel), the volume out (``volume_bytes`` per element); per element 2
+    int32 ops (an XOR and a population count for census, a difference and
+    an absolute value for SAD); for census the population counts on their
+    own unit instead where they take longer."""
     nvox = npix * d
-    ops_ms = 2 * nvox / INT32_OPS_PER_S * 1e3
-    if cost == "census":
-        ops_ms = max(ops_ms, nvox / POPC_PER_S * 1e3)
-    bytes_ms = (8 * npix + volume_bytes * nvox) / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+    nbytes = 8 * npix + volume_bytes * nvox
+    if cost == "census" and nvox / POPC_PER_S > 2 * nvox / INT32_OPS_PER_S:
+        return nbytes, nvox, POPC_PER_S
+    return nbytes, 2 * nvox, INT32_OPS_PER_S
+
+
+def k3_bound_ms(npix: int, d: int, volume_bytes: int, cost: str = "census") -> tuple[float, str]:
+    """K3's least time on the card (``k3_work``).  -> (ms, "operations"
+    or "bytes")."""
+    return bound(*k3_work(npix, d, volume_bytes, cost))
+
+
+# The int32 instructions per element and path of K4's recurrence: the
+# candidates at d - 1 and d + 1 plus P1 (2 adds), the minimum of the four
+# candidates (3), the cost added and the previous step's minimum
+# subtracted (2), the running minimum of the step (1) and the exchange of
+# the neighbours' values (1).
+K4_STEP_OPS = 9
+
+
+def k4_work(nvox: int, paths: int, volume_bytes: int,
+            agg_bytes: int) -> tuple[float, float, float]:
+    """K4's work for ``paths`` passes, one per path, over ``nvox``
+    elements -> (bytes, ops, the ops' peak rate): the first pass reads
+    the volume and writes the aggregate, each further pass reads the
+    volume and the aggregate and writes the aggregate (the one-pass-per-
+    path byte floor); ``K4_STEP_OPS`` per element and path."""
+    nbytes = ((volume_bytes + agg_bytes) * nvox
+              + (paths - 1) * (volume_bytes + 2 * agg_bytes) * nvox)
+    return nbytes, K4_STEP_OPS * paths * nvox, INT32_OPS_PER_S
+
+
+def k4_bound_ms(nvox: int, paths: int, volume_bytes: int, agg_bytes: int) -> tuple[float, str]:
+    """K4's least time on the card for one pass per path (``k4_work``).
+    -> (ms, "operations" or "bytes")."""
+    return bound(*k4_work(nvox, paths, volume_bytes, agg_bytes))
+
+
+def k5_work(npix: int, d: int, agg_bytes: int,
+            uniqueness: bool = False) -> tuple[float, float, float]:
+    """K5's work for ``npix`` pixels at ``d`` disparities -> (bytes, ops,
+    the ops' peak rate): the aggregate read once (``agg_bytes`` x d per
+    pixel) and four 4-byte planes written (disparity, sub-pixel, cost,
+    right disparity; the second best a fifth with ``uniqueness``): 16 or
+    20 B per pixel.  Per element 2 int32 ops for each first minimum, the
+    left view's and the right view's (the key or the compare, and the
+    running minimum), and 2 more for the second best (the |d - d*| > 1
+    test folded into the select, and the minimum)."""
+    nvox = npix * d
+    nbytes = agg_bytes * nvox + (20 if uniqueness else 16) * npix
+    return nbytes, (6 if uniqueness else 4) * nvox, INT32_OPS_PER_S
 
 
 def k5_bound_ms(npix: int, d: int, agg_bytes: int, uniqueness: bool = False) -> tuple[float, str]:
-    """K5's least time on the card for ``npix`` pixels at ``d``
-    disparities: the aggregate read once (``agg_bytes`` x d per pixel) and
-    four 4-byte planes written (disparity, sub-pixel, cost, right
-    disparity; the second best a fifth with ``uniqueness``): 16 or 20 B
-    per pixel.  Per element 2 int32 ops for each first minimum, the left
-    view's and the right view's (the key or the compare, and the running
-    minimum), and 2 more for the second best (the |d - d*| > 1 test folded
-    into the select, and the minimum).  -> (ms, "operations" or
-    "bytes")."""
-    nvox = npix * d
-    nbytes = agg_bytes * nvox + (20 if uniqueness else 16) * npix
-    return bound(nbytes, (6 if uniqueness else 4) * nvox, INT32_OPS_PER_S)
+    """K5's least time on the card (``k5_work``).  -> (ms, "operations"
+    or "bytes")."""
+    return bound(*k5_work(npix, d, agg_bytes, uniqueness))
 
 
 # The int32 instructions per cell and step of the web diffusion (K2): the
@@ -166,12 +221,18 @@ def k5_bound_ms(npix: int, d: int, agg_bytes: int, uniqueness: bool = False) -> 
 K2_CELL_OPS = 5
 
 
+def k2_work(npix: int, times: int) -> tuple[float, float, float]:
+    """K2's work for ``npix`` cells at ``times`` (so ``max(times - 1, 0)``
+    Jacobi steps) -> (bytes, ops, the ops' peak rate): ``K2_CELL_OPS`` per
+    cell and step; the int32 web read once and the int32 result written
+    once (8 B per cell)."""
+    return 8 * npix, K2_CELL_OPS * npix * max(times - 1, 0), INT32_OPS_PER_S
+
+
 def k2_bound_ms(npix: int, times: int) -> tuple[float, str]:
-    """K2's least time on the card for ``npix`` cells at ``times`` (so
-    ``max(times - 1, 0)`` Jacobi steps): ``K2_CELL_OPS`` per cell and
-    step; the int32 web read once and the int32 result written once
-    (8 B per cell).  -> (ms, "operations" or "bytes")."""
-    return bound(8 * npix, K2_CELL_OPS * npix * max(times - 1, 0), INT32_OPS_PER_S)
+    """K2's least time on the card (``k2_work``).  -> (ms, "operations"
+    or "bytes")."""
+    return bound(*k2_work(npix, times))
 
 
 # The float32 operations of one fill of the validity-aware fill (K6): the
@@ -203,10 +264,16 @@ def k6_filled(valid, iterations: int) -> int:
     return int((v & ~valid).sum())
 
 
+def k6_work(npix: int, filled: int) -> tuple[float, float, float]:
+    """K6's work for ``npix`` pixels of which ``filled`` turn valid
+    (``k6_filled``) -> (bytes, ops, the ops' peak rate): the float32
+    disparity and the bool validity in, the float32 result out (9 B per
+    pixel); ``K6_FILL_OPS`` per filled cell at the unfused float32 rate,
+    whatever the sweeps."""
+    return 9 * npix, K6_FILL_OPS * filled, FP32_UNFUSED_OPS_PER_S
+
+
 def k6_bound_ms(npix: int, filled: int) -> tuple[float, str]:
-    """K6's least time on the card for ``npix`` pixels of which ``filled``
-    turn valid (``k6_filled``): the float32 disparity and the bool
-    validity in, the float32 result out (9 B per pixel); ``K6_FILL_OPS``
-    per filled cell at the unfused float32 rate, whatever the sweeps.
-    -> (ms, "operations" or "bytes")."""
-    return bound(9 * npix, K6_FILL_OPS * filled, FP32_UNFUSED_OPS_PER_S)
+    """K6's least time on the card (``k6_work``).  -> (ms, "operations"
+    or "bytes")."""
+    return bound(*k6_work(npix, filled))

@@ -1,7 +1,8 @@
 """Image I/O of the port's CLI: an 8-bit grayscale PNG/PGM reader, a PNG
-writer, and the PPM-P3 writer byte-compatible with the reference's
+writer, the PPM-P3 writer byte-compatible with the reference's
 ``write_image`` (src/image.c:71-88), so artifacts dumped here can be
-byte-diffed against the reference binaries' and the JAX package's.
+byte-diffed against the reference binaries' and the JAX package's, and
+its reader (the knife-edge gate's, ``tools/knife_edge_torch.py``).
 
 The port's own copy of what its CLI needs from
 ``stereomatching_tpu/utils/imageio.py``, pure numpy (no native library;
@@ -248,6 +249,20 @@ def ppm_bytes(data: np.ndarray, imtype: ImageType) -> bytes:
 def write_ppm(path: str, data: np.ndarray, imtype: ImageType) -> None:
     with open(path, "wb") as f:
         f.write(ppm_bytes(data, imtype))
+
+
+def read_ppm(path: str) -> np.ndarray:
+    """Parse an ASCII PPM P3 written by this module or the reference,
+    returning the (equal-RGB) gray channel as int64 [H, W]."""
+    with open(path, "rb") as f:
+        tokens = f.read().split()
+    if tokens[0] != b"P3":
+        raise ValueError(f"{path}: not an ASCII PPM")
+    w, h, maxv = int(tokens[1]), int(tokens[2]), int(tokens[3])
+    vals = np.array(tokens[4 : 4 + 3 * w * h], dtype=np.int64).reshape(h, w, 3)
+    if maxv != 255:
+        raise ValueError(f"{path}: unexpected maxval {maxv}")
+    return vals[:, :, 0]
 
 
 def artifact_ppm_type(name: str) -> ImageType:

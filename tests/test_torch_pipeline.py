@@ -191,9 +191,9 @@ def test_classic_routes_pass_k2_their_bound(monkeypatch, rule):
 
 def test_import_does_not_load_jax():
     """Importing the package loads no torch; importing every module of the
-    port (and its lazy exports), and loading the port's quality tool and
-    demos as modules (without running them), loads neither jax nor any
-    module of the JAX package."""
+    port (and its lazy exports), and loading the port's tools and demos
+    as modules (without running them), loads neither jax nor any module
+    of the JAX package."""
     code = (
         "import importlib.util, pkgutil, sys\n"
         "import stereomatching_tpu_torch as pkg\n"
@@ -215,10 +215,14 @@ def test_import_does_not_load_jax():
         "          'utils.synthetic', 'utils.metrics'):\n"
         "    assert 'stereomatching_tpu_torch.' + m in names, names\n"
         "assert len(names) >= 27, names\n"
+        "for m in ('bench', 'bench.harness', 'bench.roofline', 'bench.graphs', 'bench.__main__'):\n"
+        "    assert 'stereomatching_tpu_torch.' + m in names, names\n"
         "for f in ('tools/eval_quality_torch.py', 'examples/torch_classic_demo.py',\n"
-        "          'examples/torch_modern_demo.py', 'examples/torch_serving_demo.py'):\n"
+        "          'examples/torch_modern_demo.py', 'examples/torch_serving_demo.py',\n"
+        "          'tools/render_graphs_torch.py', 'tools/scaling_bench_torch.py',\n"
+        "          'tools/multihost_smoke_torch.py', 'tools/knife_edge_torch.py'):\n"
         "    spec = importlib.util.spec_from_file_location(f.split('/')[1][:-3], f)\n"
-        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)\n"
         "    spec.loader.exec_module(mod)\n"
         "    assert callable(mod.main), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -168,6 +168,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from stereomatching_tpu_torch.bench.roofline import (  # noqa: E402
+    KERNEL_OF, card, classic_stages, modern_stages, run_stages)
+
 SIZE, SHIFTS, SEED = 1024, 64, 0
 
 
@@ -182,6 +187,23 @@ def event_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def stage_times(stages, pair, iters: int) -> dict:
+    """ms of each stage of a route (``bench.roofline``'s stage table) run
+    alone on its input from one forward of ``pair``, after one untimed
+    call (which takes the caching allocator's first block for its
+    output), by "<kernel> <stage>" ("torch" for torch ops)."""
+    import torch
+
+    def timed(fn, args):
+        fn(*args)
+        return event_ms(lambda: fn(*args), iters)
+
+    with torch.no_grad():
+        inputs, _ = run_stages(stages, pair)
+        return {f"{KERNEL_OF.get(k, 'torch')} {k}": timed(fn, inputs[k])
+                for k, fn in stages.items()}
 
 
 def busy_share(intervals) -> tuple[float, float]:
@@ -222,13 +244,6 @@ def profile_kernels(run, label: str) -> None:
           f"device span", flush=True)
 
 
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 # The modern routes: (ModernParams fields, label).
 MODERN = {
     "sgm": (dict(aggregation="sgm", cost="census"), "SGM census, 4 paths"),
@@ -236,53 +251,6 @@ MODERN = {
     "sgm8": (dict(aggregation="sgm", cost="census", sgm_directions=8, median_filter=True,
                   uniqueness=True), "SGM census, 8 paths, median, uniqueness"),
 }
-
-
-def modern_stages(params, lt, rt) -> dict:
-    """The route's stages on the batch (lt, rt), in modern_forward's
-    order: name -> a callable running that stage alone."""
-    from stereomatching_tpu_torch.models import modern
-    from stereomatching_tpu_torch.ops import costvolume, fused_diffusion, fused_modern, fused_sgm
-
-    d = params.num_disparities
-
-    def lr(disp, dr):
-        return lambda: costvolume.lr_consistency(disp, dr, params.lr_max_diff, d)
-
-    if params.aggregation == "box":
-        dl = fused_modern.disparity(lt, rt, params, "left")
-        dr = fused_modern.disparity(rt, lt, params, "right")
-        valid = lr(dl.disparity, dr.disparity)()
-        return {
-            "K7 disparity, left view": lambda: fused_modern.disparity(lt, rt, params, "left"),
-            "K7 disparity, right view": lambda: fused_modern.disparity(rt, lt, params, "right"),
-            "LR check (torch)": lr(dl.disparity, dr.disparity),
-            f"K6 fill_invalid, {params.fill_iterations} sweeps":
-                lambda: fused_diffusion.fill_invalid(dl.subpixel, valid, params.fill_iterations),
-        }
-    st, odt = modern._sgm_storage_dtype(params), modern._sgm_out_dtype(params)
-    n_paths = params.sgm_directions
-    codes = [costvolume.census_transform(x).contiguous() for x in (lt, rt)]
-    vol = fused_sgm.sgm_volume(*codes, d, "census", st)
-    agg = fused_sgm.sgm_aggregate_paths(vol, params.sgm_p1, params.sgm_p2, odt, n_paths)
-    outs = fused_sgm.sgm_tail(agg, params.uniqueness)
-    disp, sub, cost, dr = outs[:4]
-    valid = lr(disp, dr)()
-    stages = {
-        "census transform (torch)": lambda: [costvolume.census_transform(x) for x in (lt, rt)],
-        "K3 sgm_volume": lambda: fused_sgm.sgm_volume(*codes, d, "census", st),
-        f"K4 sgm_directional x{n_paths}": lambda: fused_sgm.sgm_aggregate_paths(
-            vol, params.sgm_p1, params.sgm_p2, odt, n_paths),
-        "K5 sgm_tail": lambda: fused_sgm.sgm_tail(agg, params.uniqueness),
-    }
-    if params.uniqueness:
-        stages["uniqueness ratio (torch)"] = lambda: modern._uniqueness_ratio(outs[4], cost)
-    if params.median_filter:
-        stages["median x3 (torch)"] = lambda: [costvolume.median3x3(x) for x in (disp, sub, dr)]
-    stages["LR check (torch)"] = lr(disp, dr)
-    stages[f"K6 fill_invalid, {params.fill_iterations} sweeps"] = (
-        lambda: fused_diffusion.fill_invalid(sub, valid, params.fill_iterations))
-    return stages
 
 
 def main_modern(route: str) -> None:
@@ -294,7 +262,7 @@ def main_modern(route: str) -> None:
     from stereomatching_tpu_torch.models import modern
     from stereomatching_tpu_torch.serving import ModernMatcher
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     dev = torch.device("cuda", 0)
     n = SIZE
     fields, label = MODERN[route]
@@ -334,12 +302,11 @@ def main_modern(route: str) -> None:
     profile_kernels(three, "batch 32 x3")
 
     # The route's stages, in modern_forward's order, each timed alone.
-    stages = modern_stages(params, lt, rt)
-    times = {k: event_ms(fn, 3) for k, fn in stages.items()}
+    times = stage_times(modern_stages(params), (lt, rt), 3)
     whole = event_ms(lambda: pipe(lt, rt), 3)
     print(f"[stages batch 32] forward {whole:.3f} ms; " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / whole:.1f}%)" for k, v in times.items()), flush=True)
-    del stages, lt, rt
+    del lt, rt
 
     matcher = ModernMatcher(params, device=dev)
     lu, ru = batch_u8(8)
@@ -370,33 +337,6 @@ def main_modern(route: str) -> None:
               for k, v in parts.items()), flush=True)
 
 
-def classic_stages(params, lt, rt) -> dict:
-    """The classic route's stages on the batch (lt, rt): name -> a
-    callable running that stage alone."""
-    from stereomatching_tpu_torch.models.classic import winner_bound
-    from stereomatching_tpu_torch.ops import fused, fused_diffusion
-    from stereomatching_tpu_torch.ops.contour import contour_bands
-    from stereomatching_tpu_torch.ops.edges import find_edges
-
-    stages = {}
-    if params.edge_rule == "exact":
-        winner = fused.match_score_edges(lt, rt, params)[1]
-        stages["K1 match_score_edges"] = lambda: fused.match_score_edges(lt, rt, params)
-    else:
-        el, er = (find_edges(x, params.threshold, params.mode, "reference") for x in (lt, rt))
-        winner = fused.match_and_score(el, er, params)[1]
-        stages["reference-rule edges x2 (torch)"] = lambda: [
-            find_edges(x, params.threshold, params.mode, "reference") for x in (lt, rt)]
-        stages["K8 match_and_score"] = lambda: fused.match_and_score(el, er, params)
-    bound = winner_bound(params)
-    web, mn, mx = fused_diffusion.fill_web_holes_range(winner, params.times, bound)
-    stages[f"K2 fill_web_holes_range times {params.times} "
-           f"({fused_diffusion.k2_plan(params.times, bound).launches} launches)"] = (
-        lambda: fused_diffusion.fill_web_holes_range(winner, params.times, bound))
-    stages["contour (torch)"] = lambda: contour_bands(web, params.lines, mn, mx)
-    return stages
-
-
 def main_classic(rule: str) -> None:
     import numpy as np
     import torch
@@ -406,7 +346,7 @@ def main_classic(rule: str) -> None:
     from stereomatching_tpu_torch.interop import artifacts_to_numpy
     from stereomatching_tpu_torch.serving import Matcher
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     dev = torch.device("cuda", 0)
     n = SIZE
     mode = BoundaryMode.GHOST if rule == "exact" else BoundaryMode.WRAP
@@ -445,12 +385,10 @@ def main_classic(rule: str) -> None:
     three()
     profile_kernels(three, "batch 8 x3")
 
-    stages = classic_stages(params, lt, rt)
-    times = {k: event_ms(fn, 5) for k, fn in stages.items()}
+    times = stage_times(classic_stages(params), (lt, rt), 5)
     whole = event_ms(lambda: pipe(lt, rt), 5)
     print(f"[stages batch 8] forward {whole:.3f} ms; " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / whole:.1f}%)" for k, v in times.items()), flush=True)
-    del stages
 
     matcher = Matcher(params, device=dev)
     lu, ru = batch_u8(8)
@@ -491,7 +429,7 @@ def main_sharded(route: str, data: int, rows: int) -> None:
     from stereomatching_tpu_torch.parallel import (
         build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     dev = torch.device("cuda", 0)
     mesh = make_mesh(data=data, rows=rows, devices=[dev] * (data * rows))
     rng = np.random.default_rng(SEED)
@@ -575,7 +513,7 @@ def main_k1_against(src_dir: Path) -> None:
     from stereomatching_tpu_torch.ops import fused
     from stereomatching_tpu_torch.utils.build import _target
 
-    print(f"[card] {card()}", flush=True)
+    print("[card] {name}, {power_limit}".format(**card(torch.device("cuda", 0))), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_libraries("match_score_edges", [src_dir], tmp)
         other_so = libs[src_dir.name]
@@ -639,7 +577,7 @@ def main_k8_against(src_dir: Path) -> None:
     from stereomatching_tpu_torch.utils.bench import k8_bound_ms, k9_bound_ms
     from stereomatching_tpu_torch.utils.build import _target, resource_usage
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_libraries("match_and_score", [src_dir], tmp)
@@ -815,7 +753,7 @@ def main_k4_against(src_dirs: list[Path]) -> None:
     from stereomatching_tpu_torch.ops import costvolume, fused_sgm, sgm
     from stereomatching_tpu_torch.utils.build import _target
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_libraries("sgm_directional", src_dirs, tmp)
@@ -960,7 +898,7 @@ def main_k7_against(src_dirs: list[Path]) -> None:
     from stereomatching_tpu_torch.utils.bench import K7_BENCH_KERNELS, K7_SWEEP, k7_bound_ms
     from stereomatching_tpu_torch.utils.build import _target, resource_usage
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_libraries("disparity", src_dirs, tmp)
@@ -1053,7 +991,7 @@ def main_k5_against(src_dirs: list[Path]) -> None:
     from stereomatching_tpu_torch.utils.bench import k5_bound_ms
     from stereomatching_tpu_torch.utils.build import _target
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"clocks {clocks()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1142,7 +1080,7 @@ def main_k2_against(src_dirs: list[Path]) -> None:
     from stereomatching_tpu_torch.utils.bench import k2_bound_ms
     from stereomatching_tpu_torch.utils.build import _target
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"clocks (sm, mem, power, temp) {clocks()}", flush=True)
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -1310,7 +1248,7 @@ def main_k6_against(src_dirs: list[Path]) -> None:
     from stereomatching_tpu_torch.utils.bench import k6_bound_ms, k6_filled
     from stereomatching_tpu_torch.utils.build import _target
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"clocks (sm, mem, power, temp) {clocks()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1398,7 +1336,7 @@ def main_k3_against(src_dirs: list[Path]) -> None:
     from stereomatching_tpu_torch.utils.bench import k3_bound_ms
     from stereomatching_tpu_torch.utils.build import _target
 
-    smi = card()
+    smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"clocks (sm, mem, power, temp) {clocks()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1483,7 +1421,6 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    sys.path.insert(0, str(ROOT))
     if args.k1_against:
         main_k1_against(args.k1_against.resolve())
     elif args.k8_against:
