@@ -46,7 +46,13 @@ every share of the bound at most 100% (a ``{"roofline": ...}`` line with
 the card's name and power limit); ``tools/scaling_bench_torch.py`` at 1,
 2 and 4 row shards stacked on ``cuda:0``; and ``tools/knife_edge_torch.py``'s
 gate on the CLI's exact-rule dumps (K1, K2) against the oracle's
-reference-rule ones, both modes.
+reference-rule ones, both modes.  Then phase 34, random routes: seeded
+random shapes and params (seed ``RANDOM_ROUTES_SEED``, printed) drawn so
+that every kernel takes every route it has, each held bitwise against its
+plain version on the card, and random classic and modern configs (past a
+kernel's limits among them) through the pipelines, and of the sharded tier
+on meshes of the card, against the CPU; a route drawn zero times fails the
+run.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -84,6 +90,8 @@ SGM_TRUTH_SHARE = 0.9998
 # and 99.9935% on the worst of the four on an H100, floored here.
 BOX_TRUTH_SHARE = 0.9999
 SGM8_TRUTH_SHARE = 0.9999
+# Phase 34 draws its random configurations from this seed.
+RANDOM_ROUTES_SEED = SEED + 34
 
 
 def fail(msg: str) -> None:
@@ -664,6 +672,492 @@ def measurement_phases(dev, smi: str, cli_pair) -> None:
     print(f"[33 knife-edge gate] {SIZE}x{SIZE}, the card's exact-rule CLI dumps against the "
           f"oracle's reference-rule ones: {'; '.join(notes)}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def random_routes_phase(dev, smi: str) -> None:
+    """Phase 34: seeded random configurations for every kernel, drawn so
+    that across the phase each kernel takes every route it has (K1 and
+    K8 with and without the sub-pixel plane, K9 on uneven row shards in
+    both modes, rows-only and pre-extended, K2 on 1-, 2- and 4-byte cells
+    and its step entry, K3's pixels, vectors and elements, K4's ring and
+    element paths in all eight directions, seeded or not, K5's segments
+    and wide kernels, K6 in none, one and chained launches and its sweep
+    entry, K7's strips, staged and L1 tiles for both costs and both
+    reference views).  Each kernel against its plain version on the same
+    CUDA tensors, bitwise, its launch count checked; then whole random
+    configs through ``ClassicPipeline`` and ``ModernPipeline`` on the card
+    against the same on the CPU, configs past a kernel's limits (the
+    plain routes chosen before launch) among them, and the sharded tier on
+    meshes of the card against the single-device route on the CPU.  A
+    mismatch fails the run naming the kernel, route and config; so does a
+    route drawn zero times.  Prints one line and a ``{"random_routes": ...}`` line."""
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch.config import BoundaryMode, ModernParams, StereoParams
+    from stereomatching_tpu_torch.models import classic, modern
+    from stereomatching_tpu_torch.ops import (
+        costvolume, fused, fused_diffusion, fused_modern, fused_sgm, sgm)
+    from stereomatching_tpu_torch.parallel import (
+        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+
+    seed = RANDOM_ROUTES_SEED
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    hits = {}  # kernel -> {route: configs drawn}
+
+    def pick(*options):
+        return options[int(rng.integers(len(options)))]
+
+    def between(lo, hi):
+        """An int in [lo, hi]."""
+        return int(rng.integers(lo, hi + 1))
+
+    def length(tile):
+        """A side below one 32-row strip, below ``tile``, or across a few
+        tiles; never a multiple of ``tile``."""
+        n = pick(between(1, 31), between(32, tile - 1), between(tile + 1, 3 * tile))
+        return n + 1 if n % tile == 0 else n
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def hold(kernel, route, cfg, wrapper, launches, kernel_call, plain_call):
+        """The kernel (``launches`` launches of ``wrapper``) against its
+        plain version on the same tensors, every output bitwise."""
+        before = wrapper.launches
+        got = kernel_call()
+        n = wrapper.launches - before
+        check(n == launches, f"[34] {kernel} {route} {cfg}: {n} launches, expected {launches}")
+        ref = plain_call()
+        got, ref = ((x,) if isinstance(x, torch.Tensor) else tuple(x) for x in (got, ref))
+        check(len(got) == len(ref), f"[34] {kernel} {route} {cfg}: {len(got)} outputs, plain "
+              f"{len(ref)}")
+        for i, (a, b) in enumerate(zip(got, ref)):
+            check(same(a, b), f"[34 random routes] {kernel} route {route} {cfg}: output {i} "
+                  f"differs from plain (max |d| {max_abs_diff(a, b)})")
+        hits.setdefault(kernel, {}).setdefault(route, 0)
+        hits[kernel][route] += 1
+
+    def hold_planes(group, route, cfg, got, want):
+        """Every plane of ``got`` (on the card) bitwise equal to ``want``
+        (the same route on the CPU)."""
+        check(sorted(got) == sorted(want), f"[34] {group} {route} {cfg}: keys")
+        for k in want:
+            check(same(got[k].cpu(), want[k]), f"[34 random routes] {group} {route} {cfg}: "
+                  f"{k} differs from the CPU route")
+        hits.setdefault(group, {}).setdefault(route, 0)
+        hits[group][route] += 1
+
+    def brightness(*shape):
+        return on_card(u8_to_brightness(rng.integers(0, 256, shape, dtype=np.uint8)))
+
+    def edge_maps(*shape):
+        """int32 maps, a non-zero cell an edge (0/1, or any int)."""
+        hi = pick(2, 2, 9)
+        return [on_card(rng.integers(-hi // 2, hi, shape).astype(np.int32)) for _ in range(2)]
+
+    # K1 and K8: shapes under one strip, one tile and across tiles, sw 1-255
+    # up to the image's sides, D 1-200, both modes, sub-pixel on and off.
+    for kernel, n in (("K1", 32), ("K8", 32)):
+        for i in range(n):
+            subpixel = i % 2 == 1
+            b, h, w = between(1, 3), length(128), length(128)
+            if i % 5 == 4:
+                h, w = between(256, 330), between(256, 330)
+            sw = between(0, (min(h, w, 255) - 1) // 2) * 2 + 1
+            p = StereoParams(num_shifts=between(1, 200), square_width=sw,
+                             threshold=float(rng.uniform(0.05, 0.5)), edge_rule="exact",
+                             mode=pick(BoundaryMode.GHOST, BoundaryMode.WRAP))
+            cfg = f"{b}x{h}x{w} sw {sw} D {p.num_shifts} {p.mode.value} subpixel {subpixel}"
+            route = "sub-pixel" if subpixel else "no sub-pixel"
+            if kernel == "K1":
+                lt, rt = brightness(b, h, w), brightness(b, h, w)
+                hold(kernel, route, cfg, fused.match_score_edges, 1,
+                     lambda: fused.match_score_edges(lt, rt, p, subpixel),
+                     lambda: fused.match_score_edges_reference(lt, rt, p, subpixel))
+            else:
+                el, er = edge_maps(b, h, w)
+                hold(kernel, route, cfg, fused.match_and_score, 1,
+                     lambda: fused.match_and_score(el, er, p, subpixel),
+                     lambda: fused.match_and_score_reference(el, er, p, subpixel))
+
+    # K9: stacked halo blocks of row shards whose interior is no multiple
+    # of a strip or a tile, halos of square_width // 2 and more, global
+    # first rows and columns anywhere around the image; rows-only blocks
+    # (the right map extended by D, or read modulo W in wrap mode) and
+    # pre-extended ones (a 2-D mesh's: column halos inside the blocks).
+    for i in range(24):
+        mode = pick(BoundaryMode.GHOST, BoundaryMode.WRAP)
+        pre_extended = i % 2 == 1
+        sw = between(0, 31) * 2 + 1
+        p = StereoParams(num_shifts=between(1, 100), square_width=sw, mode=mode)
+        half, d = p.half, p.num_shifts
+        halo = half + between(0, 3)
+        b, hs, w = between(1, 4), length(128), between(1, 300)
+        wrap = mode == BoundaryMode.WRAP and not pre_extended
+        wr = w if wrap and rng.random() < 0.5 else w + d + between(0, 2)
+        h_global = between(hs, 4 * hs)
+        kw = dict(l_blk=edge_maps(b, hs + 2 * halo, w)[0],
+                  r_blk=edge_maps(b, hs + 2 * halo, wr)[0], halo=halo,
+                  row0=torch.from_numpy(rng.integers(-halo, h_global, b).astype(np.int32)),
+                  h_global=h_global, pre_extended=pre_extended)
+        if pre_extended:
+            kw.update(col0=torch.from_numpy(rng.integers(-half - 2, w, b).astype(np.int32)),
+                      w_global=between(max(w - 2 * half, 1), 2 * w))
+        cfg = (f"{b} blocks of {hs}+2x{halo} rows x {w} (right {wr}) sw {sw} D {d} "
+               f"{mode.value} row0 {kw['row0'].tolist()} h_global {h_global}"
+               + (f" col0 {kw['col0'].tolist()} w_global {kw['w_global']}" if pre_extended else ""))
+        route = f"{mode.value} {'pre-extended' if pre_extended else 'rows'}"
+        hold("K9", route, cfg, fused.match_and_score_prehalo, 1,
+             lambda: fused.match_and_score_prehalo(params=p, **kw),
+             lambda: fused.match_and_score_prehalo_reference(params=p, **kw))
+
+    # K2: times 0-100; value bounds for 1-byte cells (up to 256, 255 and
+    # 256 among them), 2-byte cells (257 to 65536) and int32 cells (None:
+    # any value, negative ones too); widths across the tile edges of each
+    # storage; batch 1 included.  Its step entry on halo blocks.
+    for i in range(36):
+        nbytes = (1, 2, 4)[i % 3]
+        vb = {1: pick(between(2, 256), 255, 256), 2: pick(257, 65536, between(258, 65535)),
+              4: None}[nbytes]
+        th, tw = fused_diffusion.K2_TILES[nbytes]
+        b = pick(1, 1, 2, 3)
+        h = pick(between(1, 4), between(th - 2, th + 2), between(1, 2 * th + 9))
+        w = pick(between(1, 4), tw * between(1, 3) + between(-1, 1), between(1, 700))
+        lo, hi = (0, vb) if vb is not None else pick((0, 1 << 24), (-(1 << 20), 1 << 20))
+        web = rng.integers(lo, hi, (b, h, w))
+        web[rng.random((b, h, w)) < rng.uniform(0, 0.9)] = 0
+        web = on_card(web.astype(np.int32))
+        times = pick(0, 1, 2, 17, 18, 32, 33, 100, between(0, 100))
+        plan = fused_diffusion.k2_plan(times, vb)
+        check(plan.storage_bytes == nbytes, f"K2 value_bound {vb}: {plan.storage_bytes} bytes")
+        cfg = f"{b}x{h}x{w} times {times} value_bound {vb} values [{lo}, {hi})"
+        hold("K2", f"{nbytes}-byte cells", cfg, fused_diffusion.fill_web_holes_range,
+             plan.launches, lambda: fused_diffusion.fill_web_holes_range(web, times, vb),
+             lambda: fused_diffusion.fill_web_holes_range_reference(web, times))
+    for i in range(8):
+        x_off, b, hs, ws = i % 2, between(1, 3), between(1, 100), between(1, 200)
+        prev = on_card(rng.integers(0, 70, (b, hs, ws)).astype(np.int32))
+        ext = rng.integers(0, 70, (b, hs + 2, ws + 2 * x_off))
+        ext[rng.random(ext.shape) < 0.5] = 0
+        ext = on_card(ext.astype(np.int32))
+        hold("K2 step", "rows and columns halo" if x_off else "rows halo",
+             f"{b}x{hs}x{ws} x_off {x_off}", fused_diffusion.fill_web_holes_step, 1,
+             lambda: fused_diffusion.fill_web_holes_step(prev, ext, x_off),
+             lambda: fused_diffusion.fill_web_holes_step_reference(prev, ext, x_off))
+
+    # K3: census (codes over all 32 bits) and SAD (pixels; 0..127 into
+    # int8) at int8, int16 and int32, D and W drawn for each route: D a
+    # multiple of 32 (pixels), rows of whole 16-byte vectors that span
+    # pixels (vectors), the rest (elements).
+    for i in range(36):
+        route = fused_sgm.K3_ROUTES[i % 3]
+        vdtype = (torch.int8, torch.int16, torch.int32)[i // 3 % 3]
+        cost = pick("census", "sad")
+        esz = torch.empty((), dtype=vdtype).element_size()
+        while True:
+            d = 32 * between(1, 8) if route == "pixels" else between(1, 255)
+            w = between(1, 300)
+            if route == "vectors":
+                g = 16 // np.gcd(d * esz, 16)
+                w = g * between(1, max(300 // g, 1))
+            if fused_sgm.k3_route((w, d), vdtype) == route:
+                break
+        b, h = between(1, 3), between(1, 64)
+        if cost == "census":
+            ins = [rng.integers(-2**31, 2**31, (b, h, w)) for _ in range(2)]
+        else:
+            ins = [rng.integers(0, 128 if vdtype == torch.int8 else 256, (b, h, w))
+                   for _ in range(2)]
+        ref_t, oth_t = (on_card(x.astype(np.int32)) for x in ins)
+        cfg = f"{b}x{h}x{w} D {d} {cost} {str(vdtype).split('.')[-1]}"
+        hold("K3", route, cfg, fused_sgm.sgm_volume, 1,
+             lambda: fused_sgm.sgm_volume(ref_t, oth_t, d, cost, vdtype),
+             lambda: fused_sgm.sgm_volume_reference(ref_t, oth_t, d, cost, vdtype))
+
+    # K4: the eight directions in turn, the ring (a step's runs whole
+    # 16-byte chunks, D % ND == 0) and the element path (D = 11, 37, 40,
+    # 100 at int8 among others), written or added, seeded chains with their
+    # carry, random P1 and P2 >= P1, lines shorter than the ring of 8.
+    def k4_ring(d, vdtype, adtype):
+        """The ring's condition of ``csrc/sgm_directional.cu``
+        ``launch_nd`` (torch allocations are 16-byte aligned)."""
+        nd = 1 << max(-(-d // 32) - 1, 0).bit_length()
+        sizes = (torch.empty((), dtype=t).element_size() for t in (vdtype, adtype))
+        return all(d * s % 16 == 0 for s in sizes) and d % nd == 0
+
+    k4_directions = set()
+    paths = sgm.PATHS + sgm.DIAG_PATHS
+    for i in range(64):
+        direction, reverse = paths[i % 8]
+        ring = i // 8 % 2 == 0
+        vdtype, adtype = pick((torch.int8, torch.int16), (torch.int8, torch.int32),
+                              (torch.int16, torch.int16), (torch.int16, torch.int32),
+                              (torch.int32, torch.int32))
+        while True:
+            d = pick(between(1, 256), 16 * between(1, 16),
+                     *(() if ring else (11, 37, 40, 100)))
+            if k4_ring(d, vdtype, adtype) == ring:
+                break
+        cmax = {torch.int8: 100, torch.int16: 1000, torch.int32: 10**6}[vdtype]
+        p1 = between(0, 50)
+        p2 = p1 + between(0, 2000 if adtype == torch.int16 else 10**6)
+        b = between(1, 2)
+        h, w = pick((between(1, 7), between(1, 160)), (between(1, 160), between(1, 7)),
+                    (between(8, 160), between(8, 160)))
+        vol = on_card(rng.integers(0, cmax + 1, (b, h, w, d)).astype(
+            str(vdtype).split('.')[-1]))
+        agg0 = on_card(rng.integers(0, 1001, (b, h, w, d)).astype(str(adtype).split('.')[-1]))
+        accumulate = bool(rng.integers(0, 2))
+        seeded = direction != sgm.X and rng.random() < 0.4
+        kw = {}
+        if seeded:
+            kw = dict(seed=on_card(rng.integers(0, cmax + p2, (b, w, d)).astype(np.int32)),
+                      with_carry=True)
+        agg_k, agg_p = agg0.clone(), agg0.clone()
+        cfg = (f"{b}x{h}x{w} D {d} vol {vdtype} agg {adtype} P1 {p1} P2 {p2} direction "
+               f"{direction} reverse {reverse} accumulate {accumulate} seeded {seeded}")
+        hold("K4", ("seeded " if seeded else "") + ("ring" if ring else "elements"), cfg,
+             fused_sgm.sgm_directional, 1,
+             lambda: fused_sgm.sgm_directional(vol, agg_k, p1, p2, direction, reverse,
+                                               accumulate, **kw),
+             lambda: fused_sgm.sgm_directional_plain(vol, agg_p, p1, p2, direction, reverse,
+                                                     accumulate, **kw))
+        k4_directions.add((direction, reverse))
+    check(len(k4_directions) == 8, f"K4 directions drawn: {sorted(k4_directions)}")
+
+    # K5: each route by its rule (segments; wide: int32 at D 256 on rows past
+    # 226 columns, or a run past 8 words a lane), with and without the
+    # second best, values with ties, near the dtype's top and, at int32,
+    # near the right view's sentinel 2^28; the wide kernel also on every
+    # segment shape.
+    def k5_widest(esz, d):
+        """The widest row whose segment still fits K5's shared memory."""
+        w = fused_sgm.K5_SEG_PX + d - 1
+        while fused_sgm.k5_smem_bytes(esz, d, w) > fused_sgm.K5_SMEM_LIMIT:
+            w -= 1
+        return w
+
+    for i in range(36):
+        route = ("segments", "wide")[i % 2]
+        uniq = i // 2 % 2 == 1
+        while True:
+            adtype = pick(torch.int16, torch.int32)
+            if i % 3 == 0:  # either side of the segment's shared-memory limit
+                adtype, d = torch.int32, between(200, 256)
+                w = k5_widest(4, d) + (route == "wide")
+            elif route == "segments":
+                d, w = between(1, 256), between(1, 300)
+            elif adtype == torch.int32:
+                d, w = pick((256, between(227, 400)), (between(257, 300), between(1, 200)))
+            else:
+                d, w = between(513, 600), between(1, 100)
+            if fused_sgm.k5_route((w, d), adtype) == route:
+                break
+        b, h = between(1, 2), between(1, 24)
+        top = 32767 if adtype == torch.int16 else 1 << 28
+        lo, hi = pick((0, 8), (0, top // 8), (top - 600, top + 1 if adtype == torch.int16
+                                               else top + 600))
+        agg = on_card(rng.integers(lo, hi, (b, h, w, d)).astype(str(adtype).split('.')[-1]))
+        cfg = f"{b}x{h}x{w} D {d} {adtype} values [{lo}, {hi}) second best {uniq}"
+        hold("K5", route, cfg, fused_sgm.sgm_tail, 1, lambda: fused_sgm.sgm_tail(agg, uniq),
+             lambda: fused_sgm.sgm_tail_reference(agg, uniq))
+        if route == "segments":
+            hold("K5", "wide (forced)", cfg, fused_sgm.sgm_tail, 1,
+                 lambda: fused_sgm._tail_on_card(agg, uniq, "wide"),
+                 lambda: fused_sgm.sgm_tail_reference(agg, uniq))
+
+    # K6: sweeps 0-33 and 100 (no launch, one, chained), images smaller
+    # than one 64 x 64 tile and across tiles, validity from none to all
+    # (blocks whose cells all stay invalid stop early), planes seeded with
+    # -0.0 and NaN.  Its sweep entry on halo blocks.
+    k6_seeded = 0
+    for i in range(40):
+        it = pick(0, between(1, 16), between(17, 33), 100)
+        b = between(1, 3)
+        h, w = pick((between(1, 63), between(1, 63)), (between(1, 300), between(1, 300)))
+        d = rng.uniform(0, 64, (b, h, w)).astype(np.float32)
+        special = rng.random() < 0.5
+        if special:
+            d[rng.random((b, h, w)) < 0.05] = -0.0
+            d[rng.random((b, h, w)) < 0.02] = np.nan
+            k6_seeded += 1
+        valid = rng.random((b, h, w)) < pick(0.0, 0.002, 0.05, 0.5, 1.0)
+        dt, vt = on_card(d), on_card(valid)
+        launches = fused_diffusion.k6_plan(it).launches
+        route = {0: "no launch", 1: "one launch"}.get(launches, "chained launches")
+        cfg = f"{b}x{h}x{w} sweeps {it} valid {valid.mean():.4f} -0.0/NaN seeded {special}"
+        hold("K6", route, cfg, fused_diffusion.fill_invalid, launches,
+             lambda: fused_diffusion.fill_invalid(dt, vt, it),
+             lambda: fused_diffusion.fill_invalid_reference(dt, vt, it))
+    check(k6_seeded > 0, "K6: no plane seeded with -0.0 and NaN")
+    for i in range(8):
+        x_off, b, hs, ws = i % 2, between(1, 3), between(1, 100), between(1, 200)
+        d = rng.uniform(0, 64, (b, hs + 2, ws + 2 * x_off)).astype(np.float32)
+        d[rng.random(d.shape) < 0.05] = np.nan
+        de = on_card(d)
+        ve = on_card((rng.random(d.shape) < 0.3).astype(np.uint8))
+        hold("K6 step", "rows and columns halo" if x_off else "rows halo",
+             f"{b}x{hs}x{ws} x_off {x_off}", fused_diffusion.fill_invalid_step, 1,
+             lambda: fused_diffusion.fill_invalid_step(de, ve, x_off),
+             lambda: fused_diffusion.fill_invalid_step_reference(de, ve, x_off))
+
+    # K7: windows and D drawn until ``fused_modern.route`` takes each of
+    # its kernels for each cost that reaches it (SAD never stages its
+    # tiles), both reference views; census codes of the 3x3 or 5x5
+    # transform, SAD pixels 0..255.
+    k7_targets = [(r, c, ref) for r, c in (("strips", "sad"), ("strips", "census"),
+                                          ("tiles staged", "census"),
+                                          ("tiles through L1", "sad"),
+                                          ("tiles through L1", "census"))
+                  for ref in ("left", "right")]
+    for i in range(40):
+        route, cost, reference = k7_targets[i % len(k7_targets)]
+        for _ in range(1000):
+            if route == "strips":
+                window, d = between(0, 49 if cost == "census" else 120) * 2 + 1, between(2, 256)
+            elif route == "tiles staged":
+                window, d = between(0, 20) * 2 + 1, between(100, 256)
+            else:
+                window, d = between(25, 127) * 2 + 1, between(100, 256)
+            p = ModernParams(num_disparities=d, window=window, cost=cost,
+                             census_window=pick(3, 5))
+            if fused_modern.route(p) == route:
+                break
+        else:
+            fail(f"K7: no draw reached {route} for {cost}")
+        b, h, w = between(1, 2), between(1, 150), between(1, 200)
+        pix = [on_card(rng.integers(0, 256, (b, h, w)).astype(np.int32)) for _ in range(2)]
+        ins = ([costvolume.census_transform(x, p.census_window).contiguous() for x in pix]
+               if cost == "census" else pix)
+        cfg = f"{b}x{h}x{w} {cost} window {window} D {d} reference {reference}"
+        hold("K7", f"{route} {cost} {reference}", cfg, fused_modern.disparity, 1,
+             lambda: fused_modern.disparity(*ins, p, reference),
+             lambda: fused_modern.disparity_reference(*ins, p, reference))
+
+    # Pipelines: random classic and modern configs through ClassicPipeline
+    # and ModernPipeline on the card against the same on the CPU, every
+    # plane bitwise; a quarter of them past a kernel's limits (square
+    # width 257-301, D 257-320, box window 257-301), which run that stage's
+    # plain version on the card.
+    for i in range(16):
+        past = i % 4 == 3
+        b, h, w = (1, 320, 320) if past else (between(1, 2), between(9, 200), between(13, 300))
+        sw = between(128, 150) * 2 + 1 if past else between(0, (min(h, w, 63) - 1) // 2) * 2 + 1
+        p = StereoParams(num_shifts=between(1, 16 if past else w + 10), square_width=sw,
+                         threshold=float(rng.uniform(0.05, 0.5)), times=between(0, 40),
+                         lines=between(1, 12), mode=pick(BoundaryMode.GHOST, BoundaryMode.WRAP),
+                         edge_rule=pick("exact", "reference"))
+        subpixel = bool(rng.integers(0, 2))
+        lu, ru = (u8_to_brightness(rng.integers(0, 256, (b, h, w), dtype=np.uint8))
+                  for _ in range(2))
+        route = "classic plain stage" if classic.plain_stages(p) else "classic kernels"
+        cfg = f"{b}x{h}x{w} {p} subpixel {subpixel}"
+        pipe = classic.ClassicPipeline(p, subpixel)
+        got = pipe(on_card(lu), on_card(ru))
+        want = pipe(torch.from_numpy(lu), torch.from_numpy(ru))
+        hold_planes("pipelines", route, cfg, got, want)
+    for i in range(16):
+        agg = ("box", "sgm")[i % 2]
+        past = i % 4 >= 2
+        kw = dict(aggregation=agg, cost=pick("sad", "census"), census_window=pick(3, 5),
+                  scales=pick(1, 2), lr_max_diff=between(0, 2),
+                  median_filter=bool(rng.integers(0, 2)),
+                  fill_mode=pick("diffusion", "background"), fill_iterations=between(0, 20),
+                  num_disparities=between(257, 320) if past else between(2, 64))
+        if agg == "box" and past and i % 8 >= 6:  # past K7's window instead of its D
+            kw.update(window=between(128, 150) * 2 + 1, num_disparities=between(2, 64))
+        elif agg == "box":
+            kw["window"] = between(0, 15) * 2 + 1
+        else:
+            p1 = between(0, 20)
+            kw.update(sgm_p1=p1, sgm_p2=p1 + between(0, 200), sgm_directions=pick(4, 8),
+                      uniqueness=bool(rng.integers(0, 2)))
+        p = ModernParams(**kw)
+        b, h, w = between(1, 2), between(8, 64), between(16, 160)
+        lu, ru = (rng.integers(0, 256, (b, h, w), dtype=np.uint8) for _ in range(2))
+        route = f"{agg} {'plain stage' if modern.plain_stages(p) else 'kernels'}"
+        cfg = f"{b}x{h}x{w} {p}"
+        pipe = modern.ModernPipeline(p)
+        got = pipe(on_card(lu).to(torch.int32), on_card(ru).to(torch.int32))
+        want = pipe(torch.from_numpy(lu).to(torch.int32), torch.from_numpy(ru).to(torch.int32))
+        hold_planes("pipelines", route, cfg, got, want)
+
+    # The sharded tier on meshes of cuda:0 (every shard stacked, each stage
+    # one launch over them: K9, K2's and K6's step entries, K4's seeded
+    # chain) against the single-device pipeline on the CPU: classic on
+    # data x rows (x cols), the box route on rows x cols, SGM on rows, at
+    # random shard sides down to each halo's reach.
+    for i in range(12):
+        kind = ("classic", "box", "sgm")[i % 3]
+        cols = (2 if i % 6 == 3 else None) if kind == "classic" else 2 if kind == "box" else None
+        data, rows = (pick(1, 2), pick(2, 4)) if kind == "classic" else (1, pick(2, 4))
+        b = data * between(1, 2)
+        if kind == "classic":
+            p = StereoParams(num_shifts=between(1, 24), square_width=between(0, 4) * 2 + 1,
+                             threshold=float(rng.uniform(0.05, 0.5)), times=between(0, 12),
+                             lines=between(1, 12), mode=pick(BoundaryMode.GHOST, BoundaryMode.WRAP),
+                             edge_rule=pick("exact", "reference"))
+            y_reach, x_reach = max(p.half, 1), p.num_shifts + p.half
+        else:
+            p = ModernParams(aggregation=kind, cost=pick("sad", "census"),
+                             census_window=pick(3, 5), window=between(0, 3) * 2 + 1,
+                             num_disparities=between(2, 24), lr_max_diff=between(0, 2),
+                             median_filter=bool(rng.integers(0, 2)),
+                             fill_mode="diffusion" if cols else pick("diffusion", "background"),
+                             fill_iterations=between(0, 20),
+                             **({"sgm_directions": pick(4, 8), "sgm_p1": 8,
+                                 "sgm_p2": between(8, 200), "uniqueness": bool(rng.integers(0, 2))}
+                                if kind == "sgm" else {}))
+            ch = p.census_window // 2 if p.cost == "census" else 0
+            y_reach = max(ch if kind == "sgm" else p.window // 2 + ch, 1)
+            x_reach = p.num_disparities + p.window // 2 + ch
+        h = rows * between(y_reach, y_reach + 20)
+        w = cols * between(x_reach, x_reach + 24) if cols else between(13, 160)
+        lu, ru = (rng.integers(0, 256, (b, h, w), dtype=np.uint8) for _ in range(2))
+        mesh = make_mesh(data=data, rows=rows, cols=cols,
+                         devices=[dev] * (data * rows * (cols or 1)))
+        if kind == "classic":
+            lf, rf = u8_to_brightness(lu), u8_to_brightness(ru)
+            got = build_sharded_pipeline(p, mesh)(on_card(lf), on_card(rf))
+            want = classic.classic_forward_batched(torch.from_numpy(lf), torch.from_numpy(rf), p)
+        else:
+            li, ri = lu.astype(np.int32), ru.astype(np.int32)
+            got = build_sharded_modern_pipeline(p, mesh)(on_card(li), on_card(ri))
+            want = modern.modern_forward(torch.from_numpy(li), torch.from_numpy(ri), p)
+        route = f"sharded {kind} {'rows x cols' if cols else 'rows'}"
+        cfg = f"{b}x{h}x{w} mesh {data}x{rows}x{cols or 1} {p}"
+        hold_planes("sharded", route, cfg, got, want)
+
+    want_routes = {
+        "K1": {"no sub-pixel", "sub-pixel"}, "K8": {"no sub-pixel", "sub-pixel"},
+        "K9": {f"{m} {s}" for m in ("ghost", "wrap") for s in ("rows", "pre-extended")},
+        "K2": {"1-byte cells", "2-byte cells", "4-byte cells"},
+        "K2 step": {"rows halo", "rows and columns halo"},
+        "K3": set(fused_sgm.K3_ROUTES),
+        "K4": {"ring", "elements", "seeded ring", "seeded elements"},
+        "K5": {"segments", "wide", "wide (forced)"},
+        "K6": {"no launch", "one launch", "chained launches"},
+        "K6 step": {"rows halo", "rows and columns halo"},
+        "K7": {f"{r} {c} {ref}" for r, c, ref in k7_targets},
+        "pipelines": {f"{a} {s}" for a in ("classic", "box", "sgm")
+                      for s in ("kernels", "plain stage")},
+        "sharded": {"sharded classic rows", "sharded classic rows x cols",
+                    "sharded box rows x cols", "sharded sgm rows"},
+    }
+    for kernel, routes in want_routes.items():
+        missing = routes - set(hits.get(kernel, {}))
+        check(not missing, f"[34 random routes] seed {seed}: {kernel} never drew {sorted(missing)}")
+    seconds = time.perf_counter() - t0
+    print(f"[34 random routes] seed {seed}: "
+          + ", ".join(f"{k} {sum(r.values())} ("
+                      + ", ".join(f"{n} {c}" for n, c in sorted(r.items())) + ")"
+                      for k, r in hits.items())
+          + f"; K4 in all 8 directions; every output == plain bitwise (pipelines == the CPU "
+          f"route); {seconds:.1f} s", flush=True)
+    print(json.dumps({"random_routes": {"seed": seed, "seconds": seconds, "configs": hits}}),
+          flush=True)
 
 
 def timing_line(stdout: str):
@@ -1903,6 +2397,8 @@ def main() -> None:
     input_and_quality_phases(dev, smi, scenes_cli)
     # Phases 31-33: the measurement and cross-check side.
     measurement_phases(dev, smi, scenes_cli)
+    # Phase 34: every kernel on every route at random configurations.
+    random_routes_phase(dev, smi)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

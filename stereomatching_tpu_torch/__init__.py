@@ -33,10 +33,20 @@ kernel on CUDA tensors (no fallback).  The port owns its parameters
 (``config``) and imports no module of the JAX package.
 """
 
-from stereomatching_tpu_torch.config import BoundaryMode, ModernParams, StereoParams
+from stereomatching_tpu_torch.config import (
+    DEFAULT_LINES,
+    DEFAULT_SQUARE_WIDTH,
+    DEFAULT_THRESHOLD,
+    DEFAULT_TIMES,
+    NUM_SHIFTS,
+    BoundaryMode,
+    ModernParams,
+    StereoParams,
+)
 
 __all__ = [
     "BoundaryMode", "StereoParams", "ModernParams",
+    "DEFAULT_THRESHOLD", "DEFAULT_SQUARE_WIDTH", "DEFAULT_TIMES", "DEFAULT_LINES", "NUM_SHIFTS",
     "Matcher", "ClassicPipeline", "ModernMatcher", "ModernPipeline",
     "StereoPairDataset", "BatchLoader", "discover_pairs",
 ]
