@@ -51,8 +51,14 @@ random shapes and params (seed ``RANDOM_ROUTES_SEED``, printed) drawn so
 that every kernel takes every route it has, each held bitwise against its
 plain version on the card, and random classic and modern configs (past a
 kernel's limits among them) through the pipelines, and of the sharded tier
-on meshes of the card, against the CPU; a route drawn zero times fails the
-run.
+on meshes of the card (half of them fed block by block), against the CPU;
+a route drawn zero times fails the run.  Then phase 35, the sharded tier
+fed and read block by block (``parallel.Sharded``): the classic, SGM and
+box slices fed global batches, batches placed by ``Sharded.from_global``
+and ``BatchLoader(mesh=...)`` batches, every output block bitwise the
+global-fed route's and every output after ``to_global`` the single
+device's, with the ms/pair of the three routes (a ``{"sharded_io": ...}``
+line); with several GPUs visible, the classic case over all of them.
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -636,7 +642,10 @@ def measurement_phases(dev, smi: str, cli_pair) -> None:
     print(f"[32 scaling tool] {smi}: tools/scaling_bench_torch.py on cuda:0: "
           + ", ".join(f"{r['shards']} shards {r['ms_per_batch']:.3f} ms/batch "
                       f"({r['mpix_per_s']:.1f} Mpix/s, efficiency "
-                      f"{r['weak_scaling_efficiency']:.3f})" for r in scaling["results"])
+                      f"{r['weak_scaling_efficiency']:.3f}; block-fed "
+                      f"{r['block_fed_ms_per_batch']:.3f}, "
+                      f"{r['block_fed_weak_scaling_efficiency']:.3f})"
+                      for r in scaling["results"])
           + f"; launches {w_counts}; {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"scaling_one_card": scaling}), flush=True)
 
@@ -688,7 +697,9 @@ def random_routes_phase(dev, smi: str) -> None:
     configs through ``ClassicPipeline`` and ``ModernPipeline`` on the card
     against the same on the CPU, configs past a kernel's limits (the
     plain routes chosen before launch) among them, and the sharded tier on
-    meshes of the card against the single-device route on the CPU.  A
+    meshes of the card (half of its configs fed ``Sharded.from_global``
+    blocks, half global batches) against the single-device route on the
+    CPU.  A
     mismatch fails the run naming the kernel, route and config; so does a
     route drawn zero times.  Prints one line and a ``{"random_routes": ...}`` line."""
     import numpy as np
@@ -699,7 +710,8 @@ def random_routes_phase(dev, smi: str) -> None:
     from stereomatching_tpu_torch.ops import (
         costvolume, fused, fused_diffusion, fused_modern, fused_sgm, sgm)
     from stereomatching_tpu_torch.parallel import (
-        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+        Sharded, build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh,
+        outputs_to_global)
 
     seed = RANDOM_ROUTES_SEED
     rng = np.random.default_rng(seed)
@@ -1118,17 +1130,25 @@ def random_routes_phase(dev, smi: str) -> None:
         lu, ru = (rng.integers(0, 256, (b, h, w), dtype=np.uint8) for _ in range(2))
         mesh = make_mesh(data=data, rows=rows, cols=cols,
                          devices=[dev] * (data * rows * (cols or 1)))
+        # Half of them block-fed: inputs placed on the mesh before the call.
+        feed = "block-fed" if i % 2 else "global-fed"
+
+        def fed(x):
+            return Sharded.from_global(on_card(x), mesh) if i % 2 else on_card(x)
+
         if kind == "classic":
             lf, rf = u8_to_brightness(lu), u8_to_brightness(ru)
-            got = build_sharded_pipeline(p, mesh)(on_card(lf), on_card(rf))
+            got = build_sharded_pipeline(p, mesh)(fed(lf), fed(rf))
             want = classic.classic_forward_batched(torch.from_numpy(lf), torch.from_numpy(rf), p)
         else:
             li, ri = lu.astype(np.int32), ru.astype(np.int32)
-            got = build_sharded_modern_pipeline(p, mesh)(on_card(li), on_card(ri))
+            got = build_sharded_modern_pipeline(p, mesh)(fed(li), fed(ri))
             want = modern.modern_forward(torch.from_numpy(li), torch.from_numpy(ri), p)
         route = f"sharded {kind} {'rows x cols' if cols else 'rows'}"
-        cfg = f"{b}x{h}x{w} mesh {data}x{rows}x{cols or 1} {p}"
-        hold_planes("sharded", route, cfg, got, want)
+        cfg = f"{b}x{h}x{w} mesh {data}x{rows}x{cols or 1} {feed} {p}"
+        hold_planes("sharded", route, cfg, outputs_to_global(got), want)
+        hits.setdefault("sharded feeds", {}).setdefault(feed, 0)
+        hits["sharded feeds"][feed] += 1
 
     want_routes = {
         "K1": {"no sub-pixel", "sub-pixel"}, "K8": {"no sub-pixel", "sub-pixel"},
@@ -1145,6 +1165,7 @@ def random_routes_phase(dev, smi: str) -> None:
                       for s in ("kernels", "plain stage")},
         "sharded": {"sharded classic rows", "sharded classic rows x cols",
                     "sharded box rows x cols", "sharded sgm rows"},
+        "sharded feeds": {"block-fed", "global-fed"},
     }
     for kernel, routes in want_routes.items():
         missing = routes - set(hits.get(kernel, {}))
@@ -1158,6 +1179,175 @@ def random_routes_phase(dev, smi: str) -> None:
           f"route); {seconds:.1f} s", flush=True)
     print(json.dumps({"random_routes": {"seed": seed, "seconds": seconds, "configs": hits}}),
           flush=True)
+
+
+def sharded_io_phase(dev, smi: str) -> None:
+    """Phase 35: the sharded tier fed and read block by block.  On a data
+    2 x rows 4 mesh of ``dev`` (classic, ghost/exact and wrap/reference)
+    and a rows 4 one (bench.py's SGM params, the box default), at
+    1024², D=64, batch 8: the pipelines fed global batches, batches
+    placed by ``Sharded.from_global`` and the ``BatchLoader(mesh=...)``
+    batch of phase 28's first 8 PNG pairs; every output block of the
+    block-fed routes bitwise the global-fed route's, every output after
+    ``to_global`` bitwise the single-device pipeline's, the launch counts
+    those of phases 22-23; CUDA-event ms/pair of the block-fed route
+    (outputs left on their shards), the global-fed route with
+    ``to_global`` and the single-device pipeline.  With more than one GPU
+    visible, the classic case again on a mesh over all of them."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch import BoundaryMode, ModernParams, StereoParams
+    from stereomatching_tpu_torch.data import BatchLoader, StereoPairDataset
+    from stereomatching_tpu_torch.models.classic import ClassicPipeline
+    from stereomatching_tpu_torch.models.modern import ModernPipeline
+    from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_modern, fused_sgm
+    from stereomatching_tpu_torch.parallel import (
+        PLANE, Sharded, build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh,
+        outputs_to_global)
+    from stereomatching_tpu_torch.utils.imageio import write_png_gray
+
+    t0 = time.perf_counter()
+    wrappers = {"match_score_edges": fused.match_score_edges,
+                "match_and_score": fused.match_and_score,
+                "match_and_score_prehalo": fused.match_and_score_prehalo,
+                "fill_web_holes_range": fused_diffusion.fill_web_holes_range,
+                "fill_web_holes_step": fused_diffusion.fill_web_holes_step,
+                "disparity": fused_modern.disparity,
+                "sgm_volume": fused_sgm.sgm_volume,
+                "sgm_directional": fused_sgm.sgm_directional,
+                "sgm_tail": fused_sgm.sgm_tail,
+                "fill_invalid": fused_diffusion.fill_invalid,
+                "fill_invalid_step": fused_diffusion.fill_invalid_step}
+
+    def counted(fn):
+        """-> (fn(), {wrapper: launches during it} of those launched)."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    # Phase 28's first 8 pairs (the same seed and draws), as PNGs.
+    prng = np.random.default_rng(SEED + 28)
+    scenes = [shifted_pair(prng, SIZE, (2, 4)[i % 4 // 2], SHIFTS, sign=(-1, 1)[i % 2])
+              for i in range(BATCH)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, ThreadPoolExecutor(8) as pool:
+        tmp = Path(tmp)
+        for w in [pool.submit(write_png_gray, str(tmp / f"p{i}_{side}.png"), img)
+                  for i, (left, right, _) in enumerate(scenes)
+                  for side, img in (("left", left), ("right", right))]:
+            w.result()
+        ds = StereoPairDataset.from_root(str(tmp))
+        check(len(ds) == BATCH, f"phase 35 found {len(ds)} pairs")
+        order = [int(Path(a).name[1:].split("_")[0]) for a, _ in ds.pairs]
+        left_u8 = np.stack([scenes[i][0] for i in order])
+        right_u8 = np.stack([scenes[i][1] for i in order])
+        loaded = {shape: next(iter(BatchLoader(ds, BATCH, mesh=make_mesh(
+            *shape, devices=[dev] * (shape[0] * shape[1]))))) for shape in ((2, 4), (1, 4))}
+    lt, rt = (torch.from_numpy(u8_to_brightness(x)).to(dev) for x in (left_u8, right_u8))
+    lp, rp = (torch.from_numpy(x).to(dev).to(torch.int32) for x in (left_u8, right_u8))
+
+    def as_pixels(x):
+        """A loader batch (brightness) -> its 0..255 int32 pixel blocks."""
+        return Sharded(x.mesh, x.shape, PLANE, [(b * 256).to(torch.int32) for b in x.blocks])
+
+    mparams = ModernParams(num_disparities=SHIFTS, aggregation="sgm", cost="census",
+                           sgm_directions=4)
+    bparams = ModernParams(num_disparities=SHIFTS)
+    cases = [("classic ghost/exact", (2, 4), StereoParams(num_shifts=SHIFTS,
+              mode=BoundaryMode.GHOST, edge_rule="exact"), build_sharded_pipeline, ClassicPipeline),
+             ("classic wrap/reference", (2, 4), StereoParams(num_shifts=SHIFTS,
+              mode=BoundaryMode.WRAP, edge_rule="reference"), build_sharded_pipeline,
+              ClassicPipeline),
+             ("SGM", (1, 4), mparams, build_sharded_modern_pipeline, ModernPipeline),
+             ("box", (1, 4), bparams, build_sharded_modern_pipeline, ModernPipeline)]
+    wants = {"classic": lambda p: {"match_and_score_prehalo": 1,
+                                   "fill_web_holes_step": p.times - 1},
+             "SGM": lambda p: {"sgm_volume": 1, "sgm_directional": 2 + 2 * 4, "sgm_tail": 1,
+                               "fill_invalid_step": 16},
+             "box": lambda p: {"disparity": 2, "fill_invalid_step": 16}}
+
+    def hold_blocks(label, route, got, ref):
+        check(sorted(got) == sorted(ref), f"[35] {label} {route}: keys {sorted(got)}")
+        for k, v in ref.items():
+            check(all(same(a, b) for a, b in zip(got[k].blocks, v.blocks)),
+                  f"[35 sharded io] {label} {route}: a block of {k} differs from the "
+                  f"global-fed route's")
+
+    def hold_global(label, got, single):
+        check(sorted(got) == sorted(single), f"[35] {label}: keys {sorted(got)}")
+        for k, v in outputs_to_global(got).items():
+            check(same(v, single[k]), f"[35 sharded io] {label}: {k} after to_global differs "
+                  f"from the single-device pipeline")
+
+    notes, times = [], {}
+    for label, shape, p, build, single_cls in cases:
+        mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        kind = label.split()[0]
+        ins = (lt, rt) if kind == "classic" else (lp, rp)
+        lb, rb = loaded[shape][:2] if kind == "classic" else map(as_pixels, loaded[shape][:2])
+        placed = [Sharded.from_global(x, mesh) for x in ins]
+        for x, y in zip(placed, (lb, rb)):
+            check(all(same(a, b) for a, b in zip(x.blocks, y.blocks)),
+                  f"[35 sharded io] {label}: a loader block differs from from_global's")
+        fn = build(p, mesh)
+        single_pipe = single_cls(p)
+        gfed, g_counts = counted(lambda: fn(*ins))
+        bfed, b_counts = counted(lambda: fn(*placed))
+        lfed, l_counts = counted(lambda: fn(lb, rb))
+        want = wants[kind](p)
+        for route, counts in (("global-fed", g_counts), ("block-fed", b_counts),
+                              ("loader-fed", l_counts)):
+            check(counts == want, f"[35 sharded io] {label} {route} launches {counts}, "
+                  f"want {want}")
+        hold_blocks(label, "block-fed", bfed, gfed)
+        hold_blocks(label, "loader-fed", lfed, gfed)
+        hold_global(label, gfed, single_pipe(*ins))
+        del gfed, bfed, lfed
+        times[label] = {
+            "block_fed_sharded_out": cuda_time_ms(lambda: fn(*placed), 3) / BATCH,
+            "global_fed_to_global": cuda_time_ms(
+                lambda: outputs_to_global(fn(*ins)), 3) / BATCH,
+            "single_device": cuda_time_ms(lambda: single_pipe(*ins), 3) / BATCH}
+        notes.append(f"{label} ({'x'.join(map(str, shape))}): launches {b_counts}")
+    del loaded, placed
+
+    n_gpu = torch.cuda.device_count()
+    if n_gpu > 1:
+        p = cases[0][2]
+        mesh = make_mesh(data=1, rows=n_gpu)
+        fn = build_sharded_pipeline(p, mesh)
+        placed = [Sharded.from_global(x, mesh) for x in (lt, rt)]
+        check([b.device for b in placed[0].blocks] == [d for d, _ in mesh.blocks[2]],
+              "[35] placed blocks are not on their own GPUs")
+        gfed, bfed = fn(lt, rt), fn(*placed)
+        hold_blocks(f"classic over {n_gpu} GPUs", "block-fed", bfed, gfed)
+        hold_global(f"classic over {n_gpu} GPUs", gfed, ClassicPipeline(p)(lt, rt))
+        times[f"classic ghost/exact over {n_gpu} GPUs (rows {n_gpu})"] = {
+            "block_fed_sharded_out": cuda_time_ms(lambda: fn(*placed), 3) / BATCH,
+            "global_fed_to_global": cuda_time_ms(
+                lambda: outputs_to_global(fn(lt, rt)), 3) / BATCH}
+        multi = f"the classic case over {n_gpu} GPUs (rows {n_gpu}, a thread per GPU): equal"
+        del gfed, bfed, placed
+    else:
+        multi = (f"the classic case over several GPUs not run: {n_gpu} GPU visible (the "
+                 f"hardware is absent; the 4-GPU tools cover it)")
+    print(f"[35 sharded io] {BATCH}x{SIZE}x{SIZE}, D={SHIFTS}, meshes of {dev}: fed by global "
+          f"batches, by Sharded.from_global and by BatchLoader(mesh=...) over {BATCH} of phase "
+          f"28's PNG pairs: every output block of the block-fed routes == the global-fed "
+          f"route's, every output after to_global == the single-device pipeline bitwise; "
+          f"{'; '.join(notes)}; {multi}; {smi}: ms/pair (block-fed, outputs on their shards / "
+          f"global-fed with to_global / single device) "
+          + "; ".join(f"{k} " + " / ".join(f"{v:.4f}" for v in t.values())
+                      for k, t in times.items())
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"sharded_io": {"ms_per_pair": times, "batch": BATCH, "size": SIZE,
+                                     "card": smi}}), flush=True)
 
 
 def timing_line(stdout: str):
@@ -1910,9 +2100,10 @@ def main() -> None:
     # exchanges, the ghost masks, K9 on real halo blocks and the seeded K4
     # chain run on the card at full size.
     from stereomatching_tpu_torch.parallel import (
-        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+        Sharded, build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
     from stereomatching_tpu_torch.parallel.mesh import run as run_blocks
-    from stereomatching_tpu_torch.parallel.pipeline import prehalo_blocks, shard_extent
+    from stereomatching_tpu_torch.parallel.mesh import shard_extent
+    from stereomatching_tpu_torch.parallel.pipeline import prehalo_blocks
 
     def card_mesh(data, rows, cols=None):
         return make_mesh(data=data, rows=rows, cols=cols,
@@ -1922,8 +2113,8 @@ def main() -> None:
         """K9's keyword arguments on the blocks the sharded classic
         slice gives it (one block: every shard on cuda:0)."""
         bl, hs, ws = shard_extent(tuple(left.shape), mesh)
-        return run_blocks(mesh, bl, hs, ws, lambda sh: prehalo_blocks(
-            sh, sh.scatter(left), sh.scatter(right), params)[2])[0]
+        lb, rb = (Sharded.from_global(x, mesh).blocks[0] for x in (left, right))
+        return run_blocks(mesh, bl, hs, ws, lambda sh: prehalo_blocks(sh, lb, rb, params)[2])[0]
 
     # Phase 20: K9 against its plain version on the shard blocks of a data
     # 2 x rows 4 mesh (batch 8: 32 blocks of 256 + 2 * 10 rows), both modes
@@ -2399,6 +2590,8 @@ def main() -> None:
     measurement_phases(dev, smi, scenes_cli)
     # Phase 34: every kernel on every route at random configurations.
     random_routes_phase(dev, smi)
+    # Phase 35: the sharded tier fed and read block by block.
+    sharded_io_phase(dev, smi)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

@@ -24,10 +24,11 @@ and ``compute_ceiling_ms`` come from TPU probes (the matrix unit, the
 vector unit's issue rate) and have no counterpart on the card; they are
 left out.
 
-The halo model (``halo_phase_model``, ``gather_phase_model``,
-``weak_scaling_prediction``) prices the sharded tier's exchanges
-(``parallel/pipeline.py``) at NVLink's one-way peak and a measured
-exchange latency.
+The halo model (``halo_phase_model``, ``weak_scaling_prediction``)
+prices the sharded tier's exchanges (``parallel/pipeline.py``) at
+NVLink's one-way peak and a measured exchange latency;
+``gather_phase_model`` prices gathering its outputs (``to_global``),
+which the tier itself does not do.
 
 Usage:  python -m stereomatching_tpu_torch.bench.roofline [--pipeline sgm]
             [--batch 8] [--device cuda] [--json] [--ici]
@@ -500,11 +501,13 @@ def _exchange_us(m: Dict[str, float], peaks: Peaks) -> float:
 
 def gather_phase_model(rows_per_shard: int, w: int, batch: int, shards: int,
                        peaks: Peaks = Peaks()) -> Dict[str, float]:
-    """The sharded tier's last step, which the JAX tier does not take:
-    ``sharded_forward`` gathers every output to every rank, 6 int32
-    planes and 2 per-image values as 8 all-gathers, in which each shard
+    """What ``mesh.outputs_to_global`` costs across ranks on the classic
+    tier's outputs, a step the JAX tier takes only where a caller reads
+    the global arrays (``np.asarray``): 6 int32 planes and 2 per-image
+    values as 8 all-gathers (``Sharded.to_global``), in which each shard
     receives the other ``shards - 1`` blocks.  Grows with the shard
-    count; nothing at one shard."""
+    count; nothing at one shard.  The sharded pipelines return their
+    outputs on their shards and do not take it."""
     if shards == 1:
         return {"bytes": 0.0, "exchanges": 0.0, "us": 0.0}
     block = (6 * rows_per_shard * w + 2) * 4 * batch
@@ -518,10 +521,12 @@ def weak_scaling_prediction(
     shard_counts: Sequence[int] = (1, 2, 4, 8), peaks: Peaks = Peaks(),
     compute_us: Optional[float] = None,
 ) -> List[Dict[str, float]]:
-    """Weak-scaling efficiency of the row-sharded classic tier: the work
+    """Weak-scaling efficiency of the row-sharded classic tier, whose
+    outputs stay on their shards (as ``tools/scaling_bench_torch.py``
+    runs it: a checksum of each block, one scalar all-reduce): the work
     per shard is constant (H = N x rows_per_shard), so
 
-        eff(N) = t_compute / (t_compute + t_halo + t_gather(N)),  eff(1) = 1.
+        eff(N) = t_compute / (t_compute + t_halo),  eff(1) = 1.
 
     t_compute is ``compute_us``, a measured 1-shard time of a batch (the
     scaling tool passes its own), or else the bound of the exact-rule
@@ -536,8 +541,7 @@ def weak_scaling_prediction(
     t_halo_us = sum(m["us"] for m in halo_phase_model(params, w, batch, peaks).values())
     out = []
     for n in shard_counts:
-        t_gather_us = gather_phase_model(rows_per_shard, w, batch, n, peaks)["us"]
-        t_x = 0.0 if n == 1 else t_halo_us + t_gather_us
+        t_x = 0.0 if n == 1 else t_halo_us
         out.append({
             "shards": n,
             "height": n * rows_per_shard,
@@ -545,8 +549,7 @@ def weak_scaling_prediction(
             "t_compute_us": t_comp_us,
             "compute_from": "bound" if compute_us is None else "measured",
             "exchange_latency_us": peaks.exchange_latency_us,
-            "t_halo_us": 0.0 if n == 1 else t_halo_us,
-            "t_gather_us": t_gather_us,
+            "t_halo_us": t_x,
             "predicted_efficiency": t_comp_us / (t_comp_us + t_x),
         })
     return out

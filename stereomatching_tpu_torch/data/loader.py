@@ -20,7 +20,11 @@ Components:
     the loader's own and divided by 256 there (exact: a power-of-two
     divide), and the consumer's stream waits on that copy's event, not
     the host.  A page-locked buffer is written again only once the event
-    of the copy that read it has completed.
+    of the copy that read it has completed.  With a mesh the batch is
+    laid out on it as ``parallel.Sharded`` planes, P(data, rows[, cols])
+    as the JAX loader's ``NamedSharding``: each block of this process
+    (under ``torch.distributed``, of this rank only) is staged from a
+    page-locked buffer of its own and copied on its device's copy stream.
 """
 
 from __future__ import annotations
@@ -127,9 +131,11 @@ class BatchLoader:
 
     ``device_put=True`` yields tensors on ``device`` ("cuda", the default,
     or "cuda:N" or "cpu"; a CUDA device without a GPU raises); with
-    ``mesh`` (``parallel.make_mesh``) on the device where the sharded tier
-    reads a global batch (the one ``Matcher(mesh=mesh).device`` names),
-    and ``batch_size`` must divide by the mesh's data axis.
+    ``mesh`` (``parallel.make_mesh``) ``parallel.Sharded`` planes of the
+    mesh, each block on its own device (the batch is decoded whole, and
+    a process uploads only the blocks it holds), which the sharded
+    pipelines and ``Matcher(mesh=mesh)`` take as they are;
+    ``batch_size`` must divide by the mesh's data axis.
     ``device_put=False`` yields numpy arrays.  Every form holds the same
     values: uint8 / 256 in float32.
     """
@@ -161,19 +167,22 @@ class BatchLoader:
                     f"data axis ({mesh.shape['data']})"
                 )
         self.device = None
-        self._pool = self._copy_stream = None
+        self._pool, self._copy_streams = None, {}
         if device_put:
             if mesh is not None:
-                self.device = mesh.blocks[2][0][0]
+                self.device = mesh.blocks[2][0][0]  # this process's first block's
+                devices = [d for d, _ in mesh.blocks[2]]
             else:
                 from stereomatching_tpu_torch.utils.device import resolve_device
 
                 self.device = resolve_device(device)
-            if self.device.type == "cuda":
+                devices = [self.device]
+            cuda = [d for d in devices if d.type == "cuda"]
+            if cuda:
                 import torch
 
                 self._pool = _PinnedPool()
-                self._copy_stream = torch.cuda.Stream(self.device)
+                self._copy_streams = {d: torch.cuda.Stream(d) for d in cuda}
 
     def _assemble(self, idxs: Sequence[int]):
         decoded = [self.dataset[i] for i in idxs]
@@ -200,6 +209,8 @@ class BatchLoader:
         while len(lefts) < self.batch_size:  # pad partial batch
             lefts.append(lefts[-1])
             rights.append(rights[-1])
+        if self.mesh is not None and self.device_put:
+            return (*self._upload_blocks(lefts, rights), kept)
         if self._pool is not None:
             return (*self._upload(lefts, rights), kept)
         lb = np.stack(lefts).astype(np.float32) / np.float32(256.0)
@@ -210,35 +221,92 @@ class BatchLoader:
             lb, rb = torch.from_numpy(lb), torch.from_numpy(rb)
         return lb, rb, None, kept
 
+    def _stage(self, shape, fill, device):
+        """Write the uint8 pairs (``fill(array)`` on a [2, ...] array of
+        ``shape``) and divide by 256 on ``device`` -> (the float32 planes,
+        the event that follows them on a CUDA device, else None, and the
+        page-locked buffer to give back to the pool with that event).  On
+        a CUDA device the pairs are staged in a page-locked buffer, copied
+        on the device's copy stream and divided there."""
+        import torch
+
+        if device.type != "cuda":
+            host = np.empty(shape, dtype=np.uint8)
+            fill(host)
+            return torch.from_numpy(host).to(torch.float32).div_(256.0), None, None
+        host = self._pool.take(shape)
+        fill(host.numpy())
+        stream = self._copy_streams[device]
+        with torch.cuda.stream(stream):
+            planes = host.to(device, non_blocking=True).to(torch.float32).div_(256.0)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return planes, done, host
+
+    def _give(self, staged) -> None:
+        """Return the buffers of ``_stage``'s results to the pool."""
+        for _, done, host in staged:
+            if host is not None:
+                self._pool.give(host, done)
+
     def _upload(self, lefts, rights):
         """Stage the uint8 pairs in a page-locked buffer, copy it to the
         card on the copy stream and divide by 256 there -> (left, right,
         the event that follows both)."""
+        def fill(staged):
+            np.stack(lefts, out=staged[0])
+            np.stack(rights, out=staged[1])
+
+        staged = self._stage((2, len(lefts), *lefts[0].shape), fill, self.device)
+        self._give([staged])
+        return staged[0][0], staged[0][1], staged[1]
+
+    def _upload_blocks(self, lefts, rights):
+        """The batch as ``Sharded`` planes of the mesh: each block this
+        process holds cut from the whole decoded batch and staged on its
+        own device (``_stage``), each from a buffer of its own, so that no
+        block waits for another's copy -> (left, right, the blocks'
+        events)."""
         import torch
 
-        host = self._pool.take((2, len(lefts), *lefts[0].shape))
-        staged = host.numpy()
-        np.stack(lefts, out=staged[0])
-        np.stack(rights, out=staged[1])
-        with torch.cuda.stream(self._copy_stream):
-            planes = host.to(self.device, non_blocking=True).to(torch.float32).div_(256.0)
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-        self._pool.give(host, done)
-        return planes[0], planes[1], done
+        from stereomatching_tpu_torch.parallel.mesh import (
+            PLANE, Sharded, block_view, shard_extent)
+
+        pair = torch.from_numpy(np.stack([np.stack(lefts), np.stack(rights)]))  # [2, B, H, W]
+        mesh = self.mesh
+        bl, hs, ws = shard_extent(pair.shape[1:], mesh)
+        ld, lr, lc = mesh.blocks[0]
+        staged = []
+        for dev, j in mesh.blocks[2]:
+            v = block_view(pair, mesh, j)
+
+            def fill(buf, v=v):
+                torch.from_numpy(buf).view(v.shape).copy_(v)
+
+            staged.append(self._stage((2, lr, lc, ld * bl, hs, ws), fill, dev))
+        self._give(staged)
+        left, right = (Sharded(mesh, pair.shape[1:], PLANE, [p[i] for p, _, _ in staged])
+                       for i in (0, 1))
+        return left, right, [done for _, done, _ in staged]
 
     def _deliver(self, out):
         """-> (left, right, kept); on a CUDA device the caller's current
-        stream first waits on the batch's copy, and the batch's memory is
-        marked as used by that stream."""
+        stream first waits on the batch's copy (each block's, on its
+        device), and the batch's memory is marked as used by that
+        stream."""
         lb, rb, done, kept = out
-        if done is not None:
-            import torch
+        if isinstance(done, list):  # a sharded batch: one copy per block
+            parts = zip(lb.blocks, rb.blocks, done)
+        else:
+            parts = [(lb, rb, done)]
+        for left, right, event in parts:
+            if event is not None:
+                import torch
 
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(done)
-            lb.record_stream(stream)
-            rb.record_stream(stream)
+                stream = torch.cuda.current_stream(left.device)
+                stream.wait_event(event)
+                left.record_stream(stream)
+                right.record_stream(stream)
         return lb, rb, kept
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:

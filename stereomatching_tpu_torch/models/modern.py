@@ -310,19 +310,22 @@ def _check_inputs(left: torch.Tensor, right: torch.Tensor, params: ModernParams)
     check_sad_pixels(left, right, params)
 
 
-def check_sad_pixels(left: torch.Tensor, right: torch.Tensor, params: ModernParams) -> None:
+def check_sad_pixels(left: torch.Tensor, right: torch.Tensor, params: ModernParams,
+                     extrema: Callable = torch.aminmax) -> None:
     """Raise unless the pixels are 0..255 where K7 matches them by SAD
     (box route, ``scales=1``): it stages them as bytes and keeps 16-bit
     column sums, so other values would give other planes on the card than
     on the CPU.  Held on every device, so both take the same inputs.
     uint8 planes pass unread; others cost one min/max pass and, on the
-    card, a host sync."""
+    card, a host sync.  ``extrema(plane)`` -> (min, max) as tensors; the
+    sharded tier passes one that reduces across ranks."""
     if params.aggregation != "box" or params.cost != "sad" or params.scales != 1:
         return
-    planes = [x for x in (left, right) if x.dtype not in (torch.uint8, torch.bool) and x.numel()]
+    planes = [x for x in (left, right)
+              if x.dtype not in (torch.uint8, torch.bool) and all(x.shape)]
     if not planes:
         return
-    ext = torch.stack([v.to(torch.int64) for x in planes for v in torch.aminmax(x)]).tolist()
+    ext = torch.stack([v.to(torch.int64) for x in planes for v in extrema(x)]).tolist()
     if min(ext) < 0 or max(ext) > 255:
         raise ValueError(f"the box route with SAD takes pixel values 0..255, got "
                          f"{min(ext)}..{max(ext)}")

@@ -22,10 +22,13 @@ shift is one batched send and receive on every block (JAX's
 Typical multi-process run, one process per GPU (``torchrun
 --nproc-per-node N``, which sets the environment ``initialize`` reads):
 
-    from stereomatching_tpu_torch.parallel import distributed, make_mesh
+    from stereomatching_tpu_torch.parallel import Sharded, distributed, make_mesh
     distributed.initialize()
     mesh = make_mesh(data=1, rows=N)        # one row shard per rank
-    arts = build_sharded_pipeline(params, mesh)(left, right)
+    left = Sharded.from_callback(shape, mesh, lambda index: read_left(index))
+    right = Sharded.from_callback(shape, mesh, lambda index: read_right(index))
+    arts = build_sharded_pipeline(params, mesh)(left, right)   # this rank's shards
+    web = arts["web-2"].to_global()         # an all-gather: every rank calls it
 
 Nothing here starts a process group at import time.  Failure model:
 fail-fast, as the reference; a lost rank fails the job.
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -114,9 +117,6 @@ class LocalComm(_Grid):
     def all_reduce(self, t, op):
         return t
 
-    def all_gather(self, t) -> List[torch.Tensor]:
-        return [t]
-
 
 class DistComm(_Grid):
     """One block per ``torch.distributed`` rank (rank = flat block index)."""
@@ -147,13 +147,6 @@ class DistComm(_Grid):
 
         dist.all_reduce(t, op={"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op])
         return t
-
-    def all_gather(self, t) -> List[torch.Tensor]:
-        import torch.distributed as dist
-
-        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, t.contiguous())
-        return parts
 
 
 class _Board:
@@ -195,6 +188,3 @@ class ThreadComm(_Grid):
             out = fn(out, p.to(self.device))
         return out
 
-    def all_gather(self, t) -> List[torch.Tensor]:
-        return [p.to(self.device)
-                for p in self.board.post_and_read(self.me, t, range(len(self.board.slots)))]

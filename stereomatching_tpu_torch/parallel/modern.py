@@ -51,8 +51,8 @@ from stereomatching_tpu_torch.ops.fused_diffusion import fill_invalid_step
 from stereomatching_tpu_torch.parallel.halo import (
     exchange_col_halo, with_col_halo, with_row_halo)
 from stereomatching_tpu_torch.parallel.mesh import (
-    COLS_AXIS, ROWS_AXIS, Mesh, Shards, mesh_cols)
-from stereomatching_tpu_torch.parallel.pipeline import _as_tensor, sharded_forward
+    COLS_AXIS, ROWS_AXIS, Mesh, Sharded, Shards, _as_tensor, mesh_cols)
+from stereomatching_tpu_torch.parallel.pipeline import _sharded_input, sharded_forward
 
 Outputs = Dict[str, torch.Tensor]
 _LR_BIG = 2**20  # the LR lookup's out-of-frame sentinel
@@ -389,20 +389,26 @@ def _validate(shape, params: ModernParams, mesh: Mesh) -> None:
                 f"{x_reach} = num_disparities + window//2 + census margin)")
 
 
-def sharded_modern_forward(left, right, params: ModernParams, mesh: Mesh) -> Outputs:
-    """The modern pipeline on a global batch [B, H, W] of integer pixel
-    planes sharded over ``mesh``.  B must divide by the data axis, H by
-    the rows axis; the shard height must cover the cost phase's y reach
+def sharded_modern_forward(left, right, params: ModernParams, mesh: Mesh
+                           ) -> Dict[str, Sharded]:
+    """The modern pipeline on a batch [B, H, W] of integer pixel planes
+    sharded over ``mesh`` (global tensors or numpy, or ``Sharded``
+    planes of ``mesh``).  B must divide by the data axis, H by the rows
+    axis; the shard height must cover the cost phase's y reach
     (window//2 + census_window//2 on the box route, the census
     neighbourhood alone on SGM, whose column paths run as a phased carry
     chain instead).  ``scales=1`` only; SGM and the background fill on
-    rows-only meshes.  -> the output dict of the single-device pipeline,
-    equal to it bit for bit."""
-    left, right = _as_tensor(left), _as_tensor(right)
-    if left.is_floating_point() or right.is_floating_point():
+    rows-only meshes.  -> the output dict of the single-device pipeline
+    as sharded ``PLANE`` arrays, equal to it bit for bit after
+    ``to_global``."""
+    left, right = (x if isinstance(x, Sharded) else _as_tensor(x) for x in (left, right))
+    if left.dtype.is_floating_point or right.dtype.is_floating_point:
         raise ValueError("sharded_modern_forward takes integer pixel planes 0..255")
-    check_sad_pixels(left, right, params)
     _validate(tuple(left.shape), params, mesh)
+    left, right = _sharded_input(left, mesh), _sharded_input(right, mesh)
+    # The SAD range check on the blocks this process holds, their extremes
+    # reduced across ranks so that every rank decides alike.
+    check_sad_pixels(left, right, params, lambda x: (x.reduce("min"), x.reduce("max")))
     if params.aggregation == "sgm":
         body = _sgm_shard_forward
     elif mesh_cols(mesh) > 1:
@@ -415,8 +421,9 @@ def sharded_modern_forward(left, right, params: ModernParams, mesh: Mesh) -> Out
 
 def build_sharded_modern_pipeline(
     params: ModernParams, mesh: Mesh
-) -> Callable[..., Outputs]:
-    """The sharded modern pipeline for fixed params and mesh: global
-    [B, H, W] integer pixel batches -> the single-device output dict, on
-    the mesh's device."""
+) -> Callable[..., Dict[str, Sharded]]:
+    """The sharded modern pipeline for fixed params and mesh: [B, H, W]
+    integer pixel batches (global tensors, numpy, or ``Sharded`` planes
+    of ``mesh``) -> the single-device output dict as sharded arrays on
+    the mesh's blocks (``mesh.outputs_to_global`` gathers it)."""
     return torch.no_grad()(functools.partial(sharded_modern_forward, params=params, mesh=mesh))

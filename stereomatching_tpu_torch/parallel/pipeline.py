@@ -29,7 +29,6 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -45,7 +44,7 @@ from stereomatching_tpu_torch.ops.matching import extend_right_edges
 from stereomatching_tpu_torch.parallel.halo import (
     exchange_col_halo, with_col_halo, with_row_halo)
 from stereomatching_tpu_torch.parallel.mesh import (
-    COLS_AXIS, ROWS_AXIS, Mesh, Shards, mesh_cols, run)
+    COLS_AXIS, PER_IMAGE, PLANE, ROWS_AXIS, Mesh, Sharded, Shards, _as_tensor, mesh_cols, run)
 
 Artifacts = Dict[str, torch.Tensor]
 
@@ -154,50 +153,59 @@ def _shard_forward(sh: Shards, left: torch.Tensor, right: torch.Tensor,
     }
 
 
-def _as_tensor(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+def _sharded_input(x, mesh: Mesh) -> Sharded:
+    """A pipeline input -> a plane laid out on ``mesh``: a global tensor
+    or numpy array is placed (``Sharded.from_global``); a sharded one
+    must be a plane of the same mesh."""
+    if not isinstance(x, Sharded):
+        x = _as_tensor(x)
+        if x.ndim != 3:
+            raise ValueError(f"need [B, H, W] batches, got {tuple(x.shape)}")
+        return Sharded.from_global(x, mesh)
+    if x.mesh != mesh:
+        raise ValueError(f"a sharded input lies on another mesh ({x.mesh}), not {mesh}")
+    if x.layout != PLANE:
+        raise ValueError(f"a sharded input must be a {PLANE}, not {x.layout}")
+    return x
 
 
-def shard_extent(shape, mesh: Mesh):
-    """Global [B, H, W] -> (bl, hs, ws), the per-shard extent; raises
-    unless each axis divides by its mesh axis."""
-    b, h, w = shape
-    nd, nr, nc = mesh.dims
-    for name, n, k in (("batch", b, nd), ("height", h, nr), ("width", w, nc)):
-        if n % k:
-            raise ValueError(f"{name} {n} does not divide by the mesh's {k} shards on that axis")
-    return b // nd, h // nr, w // nc
-
-
-def sharded_forward(mesh: Mesh, left, right, body: Callable) -> Artifacts:
-    """Scatter global [B, H, W] inputs over ``mesh``, run ``body(shards,
-    left_block, right_block)`` on every block of this process, gather the
-    block outputs -> the global output dict (on every rank)."""
-    left, right = _as_tensor(left), _as_tensor(right)
-    if left.shape != right.shape or left.ndim != 3:
-        raise ValueError(f"need two equal [B, H, W] batches, got {tuple(left.shape)} "
-                         f"and {tuple(right.shape)}")
-    bl, hs, ws = shard_extent(tuple(left.shape), mesh)
+def sharded_forward(mesh: Mesh, left, right, body: Callable) -> Dict[str, Sharded]:
+    """Run ``body(shards, left_block, right_block)`` on every block of
+    this process -> its outputs as sharded arrays, no plane gathered (the
+    JAX tier's ``out_specs``: block tensors [lr, lc, n, hs, ws] become
+    planes, [lr, lc, n] per-image values).  ``left`` / ``right``: global
+    [B, H, W] tensors or numpy arrays, placed over ``mesh`` first, or
+    ``Sharded`` planes of ``mesh`` (a block on another device than its
+    own is copied there)."""
+    left, right = _sharded_input(left, mesh), _sharded_input(right, mesh)
+    if left.shape != right.shape:
+        raise ValueError(f"need two equal [B, H, W] batches, got {left.shape} and {right.shape}")
+    bl, hs, ws = left.extent
 
     def block(sh: Shards):
-        outs = body(sh, sh.scatter(left), sh.scatter(right))
-        return {k: sh.gather(v) for k, v in outs.items()}
+        lb, rb = (x.block(sh.block).to(sh.device) for x in (left, right))
+        return body(sh, lb, rb)
 
-    return run(mesh, bl, hs, ws, block)[0]
+    outs = run(mesh, bl, hs, ws, block)
+    return {k: Sharded(mesh, left.shape if v.ndim == 5 else left.shape[:1],
+                       PLANE if v.ndim == 5 else PER_IMAGE, [o[k] for o in outs])
+            for k, v in outs[0].items()}
 
 
 def sharded_classic_forward(
     left, right, params: StereoParams, mesh: Mesh
-) -> Artifacts:
-    """The classic pipeline on a global batch [B, H, W] of float
-    brightness sharded over ``mesh``.  B must divide by the data axis, H
+) -> Dict[str, Sharded]:
+    """The classic pipeline on a batch [B, H, W] of float brightness
+    sharded over ``mesh`` (global tensors or numpy, or ``Sharded``
+    planes of ``mesh``).  B must divide by the data axis, H
     by the rows axis; the shard height must cover the halo reach
     max(1, square_width // 2).  A (data, rows, cols) mesh also shards W:
     the shard width must cover the x reach num_shifts + square_width//2
-    on the right.  -> the artifact dict of the single-device pipeline,
-    equal to it bit for bit."""
+    on the right.  -> the artifact dict of the single-device pipeline as
+    sharded arrays (the planes ``PLANE``, min / max_elevation
+    ``PER_IMAGE``), equal to it bit for bit after ``to_global``."""
     if COLS_AXIS in mesh.axis_names:
-        w = _as_tensor(left).shape[-1]
+        w = (left if isinstance(left, Sharded) else _as_tensor(left)).shape[-1]
         n_cols = mesh_cols(mesh)
         ws = w // n_cols
         reach = params.num_shifts + params.half
@@ -215,8 +223,10 @@ def sharded_classic_forward(
 
 def build_sharded_pipeline(
     params: StereoParams, mesh: Mesh
-) -> Callable[..., Artifacts]:
-    """The sharded classic pipeline for fixed params and mesh: global
-    [B, H, W] brightness batches (tensors on any device, or numpy) -> the
-    single-device artifact dict, on the mesh's device."""
+) -> Callable[..., Dict[str, Sharded]]:
+    """The sharded classic pipeline for fixed params and mesh: [B, H, W]
+    brightness batches (global tensors on any device, numpy, or
+    ``Sharded`` planes of ``mesh``) -> the single-device artifact dict as
+    sharded arrays on the mesh's blocks (``mesh.outputs_to_global``
+    gathers it)."""
     return torch.no_grad()(functools.partial(sharded_classic_forward, params=params, mesh=mesh))

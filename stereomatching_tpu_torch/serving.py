@@ -29,6 +29,13 @@ each image's rows (and columns) over its spatial axes:
 
     mesh = make_mesh(data=2, rows=4, devices=["cuda:0"] * 8)
     arts = Matcher(params, mesh=mesh)(left_u8, right_u8)
+
+A batch already laid out on the matcher's mesh (``parallel.Sharded``, as
+``BatchLoader(mesh=mesh)`` yields it: float32 brightness for ``Matcher``,
+integer pixels for ``ModernMatcher``) goes straight in, block by block;
+any other sharded batch is gathered first (``np.asarray``).  Either way
+the outputs are gathered (``to_global``) and returned as numpy arrays of
+the global batch.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from stereomatching_tpu_torch.interop import artifacts_to_numpy
 from stereomatching_tpu_torch.models import classic, modern
 from stereomatching_tpu_torch.models.classic import ClassicPipeline
 from stereomatching_tpu_torch.models.modern import ModernPipeline
+from stereomatching_tpu_torch.parallel.mesh import PLANE, Sharded, outputs_to_global
 from stereomatching_tpu_torch.utils.device import resolve_device
 
 
@@ -58,13 +66,31 @@ def _warmup(pipeline, device: torch.device, dtype: torch.dtype,
         torch.cuda.synchronize(device)
 
 
-def _run_sharded(fn, mesh, lt: torch.Tensor, rt: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The sharded tier on a pair or batch: a pair becomes a batch of
+def _straight_in(mesh, left, right, floating: bool) -> bool:
+    """Whether a pair goes straight into the sharded tier: two equal
+    ``Sharded`` planes of ``mesh`` (whose batch the data axis divides, as
+    every plane of the mesh's does) of float32 brightness (``floating``)
+    or integer pixels."""
+    def fits(x):
+        if not (isinstance(x, Sharded) and x.mesh == mesh and x.layout == PLANE):
+            return False
+        if floating:
+            return x.dtype == torch.float32
+        return not x.dtype.is_floating_point and x.dtype != torch.bool
+
+    return mesh is not None and fits(left) and fits(right) and left.shape == right.shape
+
+
+def _run_sharded(fn, mesh, lt, rt, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The sharded tier on a pair or batch, gathered on ``device``.  A
+    sharded batch goes straight in.  Otherwise a pair becomes a batch of
     one, the batch is padded up to a multiple of the data axis by
     repeating its last pair, and the padding is sliced away again; a
     height that does not divide by the rows axis is refused."""
     from stereomatching_tpu_torch.parallel.mesh import DATA_AXIS, ROWS_AXIS
 
+    if isinstance(lt, Sharded):
+        return outputs_to_global(fn(lt, rt), device)
     squeeze = lt.ndim == 2
     if squeeze:
         lt, rt = lt[None], rt[None]
@@ -77,7 +103,7 @@ def _run_sharded(fn, mesh, lt: torch.Tensor, rt: torch.Tensor) -> Dict[str, torc
         pad = n_data - n_real % n_data
         lt = torch.cat([lt, lt[-1:].expand(pad, *lt.shape[1:])])
         rt = torch.cat([rt, rt[-1:].expand(pad, *rt.shape[1:])])
-    out = fn(lt, rt)
+    out = outputs_to_global(fn(lt, rt), device)
     if squeeze:
         return {k: v[0] for k, v in out.items()}
     return {k: v[:n_real] for k, v in out.items()}
@@ -120,6 +146,8 @@ class Matcher:
         _warmup(self._run, self.device, torch.float32, hw, batch)
 
     def __call__(self, left: np.ndarray, right: np.ndarray) -> Dict[str, np.ndarray]:
+        if _straight_in(self.mesh, left, right, floating=True):
+            return artifacts_to_numpy(self._run(left, right))
         lb = self._to_brightness(left)
         rb = self._to_brightness(right)
         if lb.shape != rb.shape:
@@ -132,7 +160,7 @@ class Matcher:
 
     def _run(self, lt: torch.Tensor, rt: torch.Tensor):
         if self.mesh is not None:
-            return _run_sharded(self.pipeline, self.mesh, lt, rt)
+            return _run_sharded(self.pipeline, self.mesh, lt, rt, self.device)
         return self.pipeline(lt, rt)
 
 
@@ -185,6 +213,8 @@ class ModernMatcher:
         _warmup(self._run, self.device, torch.int32, hw, batch)
 
     def __call__(self, left: np.ndarray, right: np.ndarray) -> Dict[str, np.ndarray]:
+        if _straight_in(self.mesh, left, right, floating=False):
+            return artifacts_to_numpy(self._run(left, right))
         lp = self._to_pixels(left)
         rp = self._to_pixels(right)
         if lp.shape != rp.shape:
@@ -197,5 +227,5 @@ class ModernMatcher:
 
     def _run(self, lt: torch.Tensor, rt: torch.Tensor):
         if self.mesh is not None:
-            return _run_sharded(self.pipeline, self.mesh, lt, rt)
+            return _run_sharded(self.pipeline, self.mesh, lt, rt, self.device)
         return self.pipeline(lt, rt)

@@ -244,12 +244,14 @@ def test_weak_scaling_per_shard_cost_flat_in_n():
     halos = {r["t_halo_us"] for r in pred[1:]}
     comps = {r["t_compute_us_bound"] for r in pred}
     assert len(halos) == 1 and len(comps) == 1  # the halo and compute per shard: flat in N
-    # The output gather (not in the JAX tier) grows with N, and so only the
-    # efficiency falls past N = 2.
-    gathers = [r["t_gather_us"] for r in pred[1:]]
-    assert gathers == sorted(gathers) and gathers[0] < gathers[-1]
+    # The outputs stay on their shards, as in the JAX tier: no gather is
+    # charged, so the efficiency is flat past N = 1.  Gathering them
+    # (``to_global``, priced by ``gather_phase_model``) grows with N.
+    assert all("t_gather_us" not in r for r in pred)
+    gathers = [roofline.gather_phase_model(256, 1024, 2, r["shards"])["us"] for r in pred]
+    assert gathers[0] == 0.0 and gathers[1:] == sorted(gathers[1:]) and gathers[1] < gathers[-1]
     effs = [r["predicted_efficiency"] for r in pred]
-    assert effs == sorted(effs, reverse=True) and all(0 < e <= 1 for e in effs)
+    assert effs[0] == 1.0 and len(set(effs[1:])) == 1 and 0 < effs[1] < 1
     assert all(r["compute_from"] == "bound" for r in pred)
     # A measured 1-shard time in place of the bound: the same exchanges.
     slow = roofline.weak_scaling_prediction(p, 256, 1024, batch=2, shard_counts=(1, 2),
@@ -257,7 +259,7 @@ def test_weak_scaling_per_shard_cost_flat_in_n():
     assert slow[1]["t_compute_us"] == 5000.0 and slow[1]["compute_from"] == "measured"
     assert slow[1]["t_halo_us"] == pred[1]["t_halo_us"]
     assert slow[1]["predicted_efficiency"] == pytest.approx(
-        5000.0 / (5000.0 + pred[1]["t_halo_us"] + pred[1]["t_gather_us"]))
+        5000.0 / (5000.0 + pred[1]["t_halo_us"]))
     assert roofline.main(["--ici"]) == 0
 
 
@@ -293,6 +295,10 @@ def test_scaling_tool_on_cpu(capsys):
     assert out["results"][0]["weak_scaling_efficiency"] == 1.0
     # The shards stacked on one device exchange by slicing: no NVLink model.
     assert [r["model_efficiency"] for r in out["results"]] == [1.0, None]
+    # The block-fed route on the same call: the same outputs, its own times.
+    assert out["results"][0]["block_fed_weak_scaling_efficiency"] == 1.0
+    assert [r["block_fed_model_efficiency"] for r in out["results"]] == [1.0, None]
+    assert all(r["block_fed_ms_per_batch"] > 0 for r in out["results"])
     assert out["model_exchange_latency_us"] == roofline.Peaks().exchange_latency_us
 
 

@@ -942,7 +942,7 @@ def test_diffusion_step_kernels_match_plain(cuda_device, x_off):
 @pytest.mark.parametrize("mesh_shape", [(2, 4, None), (1, 2, 2), (2, 2, 2)])
 def test_sharded_classic_on_one_card_matches_single_device(cuda_device, mode, mesh_shape):
     from stereomatching_tpu_torch.models.classic import classic_forward_batched
-    from stereomatching_tpu_torch.parallel import build_sharded_pipeline, make_mesh
+    from stereomatching_tpu_torch.parallel import build_sharded_pipeline, make_mesh, outputs_to_global
 
     data, rows, cols = mesh_shape
     params = StereoParams(num_shifts=12, square_width=9, times=6, lines=4, mode=mode,
@@ -954,7 +954,7 @@ def test_sharded_classic_on_one_card_matches_single_device(cuda_device, mode, me
     left, right = (torch.from_numpy(rng.integers(0, 256, shape).astype(np.float32) / 256.0)
                    .to(cuda_device) for _ in range(2))
     before = fused.match_and_score_prehalo.launches
-    got = build_sharded_pipeline(params, mesh)(left, right)
+    got = outputs_to_global(build_sharded_pipeline(params, mesh)(left, right))
     assert fused.match_and_score_prehalo.launches == before + 1
     want = classic_forward_batched(left, right, params)
     for k, v in want.items():
@@ -970,7 +970,7 @@ def test_sharded_classic_on_one_card_matches_single_device(cuda_device, mode, me
     (dict(cost="sad", window=5, median_filter=True), (1, 2, 2)),
 ])
 def test_sharded_modern_on_one_card_matches_single_device(cuda_device, kw, mesh_shape):
-    from stereomatching_tpu_torch.parallel import build_sharded_modern_pipeline, make_mesh
+    from stereomatching_tpu_torch.parallel import build_sharded_modern_pipeline, make_mesh, outputs_to_global
 
     data, rows, cols = mesh_shape
     params = ModernParams(num_disparities=16, **kw)
@@ -980,7 +980,7 @@ def test_sharded_modern_on_one_card_matches_single_device(cuda_device, kw, mesh_
     shape = (data, 48, 40 * (cols or 1))
     left, right = (torch.from_numpy(rng.integers(0, 256, shape).astype(np.int32)).to(cuda_device)
                    for _ in range(2))
-    got = build_sharded_modern_pipeline(params, mesh)(left, right)
+    got = outputs_to_global(build_sharded_modern_pipeline(params, mesh)(left, right))
     want = modern.modern_forward(left, right, params)
     assert sorted(got) == sorted(want)
     for k, v in want.items():
@@ -994,7 +994,7 @@ def test_sharded_over_every_visible_gpu_in_one_process(cuda_device):
     in threads and their halos and SGM carries cross devices."""
     from stereomatching_tpu_torch.models.classic import classic_forward_batched
     from stereomatching_tpu_torch.parallel import (
-        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh, outputs_to_global)
 
     n = torch.cuda.device_count()
     if n < 2:
@@ -1007,12 +1007,12 @@ def test_sharded_over_every_visible_gpu_in_one_process(cuda_device):
     cparams = StereoParams(num_shifts=12, square_width=9, times=6, lines=4,
                            mode=BoundaryMode.GHOST, edge_rule="exact")
     lf, rf = (torch.from_numpy(x.astype(np.float32) / 256.0).to(cuda_device) for x in (left, right))
-    got = build_sharded_pipeline(cparams, mesh)(lf, rf)
+    got = outputs_to_global(build_sharded_pipeline(cparams, mesh)(lf, rf))
     for k, v in classic_forward_batched(lf, rf, cparams).items():
         assert torch.equal(got[k].to(cuda_device), v), k
     mparams = ModernParams(num_disparities=16, aggregation="sgm", cost="census", sgm_directions=8)
     lp, rp = (torch.from_numpy(x.astype(np.int32)).to(cuda_device) for x in (left, right))
-    got = build_sharded_modern_pipeline(mparams, mesh)(lp, rp)
+    got = outputs_to_global(build_sharded_modern_pipeline(mparams, mesh)(lp, rp))
     for k, v in modern.modern_forward(lp, rp, mparams).items():
         assert torch.equal(got[k].to(cuda_device), v), k
 
@@ -1079,19 +1079,19 @@ def test_sharded_plain_stage_route_equals_single_device(cuda_device, case):
     255); equal to the single-device route."""
     from stereomatching_tpu_torch.models.classic import classic_forward_batched
     from stereomatching_tpu_torch.parallel import (
-        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh, outputs_to_global)
 
     mesh = make_mesh(data=1, rows=2, devices=[cuda_device] * 2)
     if case == "box-d320":
         params = ModernParams(num_disparities=320)
         left, right = _pair(cuda_device, (1, 40, 352), 43, False)
-        got = build_sharded_modern_pipeline(params, mesh)(left, right)
+        got = outputs_to_global(build_sharded_modern_pipeline(params, mesh)(left, right))
         want = modern.modern_forward(left, right, params)
     else:
         params = StereoParams(num_shifts=2000, square_width=255, times=4, lines=4)
         left, right = _pair(cuda_device, (1, 320, 320), 44, True)
         before = fused.match_and_score_prehalo.launches
-        got = build_sharded_pipeline(params, mesh)(left, right)
+        got = outputs_to_global(build_sharded_pipeline(params, mesh)(left, right))
         assert fused.match_and_score_prehalo.launches == before
         want = classic_forward_batched(left, right, params)
     assert sorted(got) == sorted(want)
@@ -1171,6 +1171,40 @@ def test_batch_loader_pinned_copies_equal_host_batches(cuda_device, tmp_path, kw
 
 
 @pytest.mark.cuda
+def test_batch_loader_on_a_card_mesh_stages_each_block(cuda_device, tmp_path):
+    """With a mesh the loader yields sharded planes: each block staged in a
+    page-locked buffer of its own and copied on its device's copy stream,
+    on its own device (every visible GPU where there are several), its
+    shards equal to the numpy batch's slices, and the batch fed to the
+    sharded matcher as it is."""
+    from stereomatching_tpu_torch.data import BatchLoader
+    from stereomatching_tpu_torch.parallel import Sharded, make_mesh
+    from stereomatching_tpu_torch.serving import Matcher
+
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(n)] if n > 1 else [cuda_device] * 4
+    mesh = make_mesh(data=1, rows=len(devices), devices=devices)
+    ds = _png_dataset(tmp_path, 6, (8 * len(devices), 64), 52)
+    host = list(BatchLoader(ds, 3, device_put=False))
+    loader = BatchLoader(ds, 3, mesh=mesh)
+    got = list(loader)
+    assert [k for *_, k in got] == [k for *_, k in host]
+    assert loader._pool.allocated >= len(mesh.blocks[2])
+    params = StereoParams(square_width=5, times=3, num_shifts=6, edge_rule="exact")
+    for (lb, rb, _), (hl, hr, _) in zip(got, host):
+        for x, h in ((lb, hl), (rb, hr)):
+            assert isinstance(x, Sharded) and x.dtype == torch.float32
+            assert [b.device for b in x.blocks] == [
+                torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
+                for d, _ in mesh.blocks[2]]
+            for index, t in x.addressable_shards:
+                assert torch.equal(t.cpu(), torch.from_numpy(h[index])), index
+        want = Matcher(params, device=cuda_device)(hl, hr)
+        arts = Matcher(params, mesh=mesh)(lb, rb)
+        assert all(np.array_equal(arts[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
 def test_batch_loader_reuses_a_host_buffer_only_after_its_copy(cuda_device, tmp_path):
     """With each copy queued behind a long sleep on the copy stream, one
     worker must wait for a buffer's copy before writing the next batch
@@ -1180,7 +1214,7 @@ def test_batch_loader_reuses_a_host_buffer_only_after_its_copy(cuda_device, tmp_
 
     class SlowCopies(BatchLoader):
         def _upload(self, lefts, rights):
-            with torch.cuda.stream(self._copy_stream):
+            with torch.cuda.stream(self._copy_streams[self.device]):
                 torch.cuda._sleep(50_000_000)
             return super()._upload(lefts, rights)
 

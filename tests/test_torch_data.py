@@ -22,7 +22,7 @@ from stereomatching_tpu.data import formats as j_formats
 from stereomatching_tpu_torch import data
 from stereomatching_tpu_torch.config import StereoParams
 from stereomatching_tpu_torch.data import BatchLoader, StereoPairDataset, discover_pairs, formats
-from stereomatching_tpu_torch.parallel import make_mesh
+from stereomatching_tpu_torch.parallel import Sharded, make_mesh
 from stereomatching_tpu_torch.serving import Matcher
 from stereomatching_tpu_torch.utils.imageio import write_png_gray
 from tests.util import synthetic_pair
@@ -284,9 +284,9 @@ def test_batch_loader_skips_mixed_shapes_with_warning(tmp_path, capsys):
 
 def test_batch_loader_on_virtual_cpu_mesh(dataset_root):
     """A mesh refuses a batch its data axis does not divide (the JAX
-    loader's check); otherwise batches land where the sharded tier reads a
-    global batch, and the sharded Matcher fed by them equals the direct
-    call."""
+    loader's check); otherwise batches are sharded planes of the mesh
+    (the JAX loader's ``NamedSharding``, tests/test_data_serving.py:226),
+    and the sharded Matcher fed by them equals the direct call."""
     ds = StereoPairDataset.from_root(dataset_root)
     mesh = make_mesh(data=2, rows=2, devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="data axis"):
@@ -297,9 +297,10 @@ def test_batch_loader_on_virtual_cpu_mesh(dataset_root):
     assert loader.device == sharded.device == torch.device("cpu")
     total = 0
     for lb, rb, kept in loader:
-        assert isinstance(lb, torch.Tensor) and lb.device == sharded.device
+        assert isinstance(lb, Sharded) and lb.mesh == mesh and lb.layout == "plane"
+        assert all(blk.device == sharded.device for blk in lb.blocks + rb.blocks)
         got = sharded(lb, rb)
-        want = Matcher(params, device="cpu")(lb.numpy(), rb.numpy())
+        want = Matcher(params, device="cpu")(np.asarray(lb), np.asarray(rb))
         for k in want:
             assert np.array_equal(got[k], want[k]), k
         total += kept

@@ -3,7 +3,12 @@ ranks (gloo, CPU), each holding a block of two shards of a rows-4 mesh,
 exchange their halos, the contour's per-image range and the SGM chain's
 carries through point-to-point sends and collectives.  Every output
 plane must equal the single-device pipeline's bit for bit (classic ghost
-with the exact rule, and SGM census with 8 paths).  On a host with
+with the exact rule, and SGM census with 8 paths): each shard a rank
+holds at its global index, and the planes ``to_global`` gathers on every
+rank.  Inputs come both as global batches and shard by shard from a
+callback (``Sharded.from_callback``), which each rank must ask for its
+own shards only.  A pixel out of the box route's SAD range in one
+rank's rows makes every rank raise.  On a host with
 several GPUs the same check runs with one NCCL rank per GPU, one shard
 each (marked ``cuda``; skips with fewer than two GPUs).
 
@@ -45,7 +50,7 @@ def worker(rank: int, world: int, port: int, backend: str) -> None:
     from stereomatching_tpu_torch.models.classic import classic_forward_batched
     from stereomatching_tpu_torch.models.modern import modern_forward
     from stereomatching_tpu_torch.parallel import (
-        build_sharded_modern_pipeline, build_sharded_pipeline, distributed, make_mesh)
+        Sharded, build_sharded_modern_pipeline, build_sharded_pipeline, distributed, make_mesh)
 
     if backend == "nccl":  # one shard per rank, on the rank's GPU
         dev = torch.device("cuda", rank)
@@ -67,16 +72,44 @@ def worker(rank: int, world: int, port: int, backend: str) -> None:
     mparams = ModernParams(num_disparities=8, aggregation="sgm", cost="census",
                            sgm_directions=8, median_filter=True, uniqueness=True)
     lp, rp = (torch.from_numpy(x.astype(np.int32)).to(dev) for x in (l_u8, r_u8))
+    asked = []
+
+    def placed(x):
+        """x laid out on the mesh from a callback that serves its slices."""
+        host = x.cpu()
+
+        def cb(index):
+            asked.append(index)
+            return host[index]
+        return Sharded.from_callback(tuple(x.shape), mesh, cb)
+
+    csh, msh = [placed(x) for x in (lf[:1], rf[:1])], [placed(x) for x in (lp, rp)]
+    mine = {(slice(None), slice(s * 12, (s + 1) * 12), slice(None))
+            for s in range(rank * per_rank, (rank + 1) * per_rank)}
+    assert set(asked) == mine and len(asked) == 4 * per_rank, (rank, asked)
+    cfn, mfn = build_sharded_pipeline(cparams, mesh), build_sharded_modern_pipeline(mparams, mesh)
+    cwant, mwant = classic_forward_batched(lf[:1], rf[:1], cparams), modern_forward(lp, rp, mparams)
     runs = [
-        ("classic", build_sharded_pipeline(cparams, mesh)(lf[:1], rf[:1]),
-         classic_forward_batched(lf[:1], rf[:1], cparams)),
-        ("sgm", build_sharded_modern_pipeline(mparams, mesh)(lp, rp),
-         modern_forward(lp, rp, mparams)),
+        ("classic", cfn(lf[:1], rf[:1]), cwant),
+        ("classic from callbacks", cfn(*csh), cwant),
+        ("sgm", mfn(lp, rp), mwant),
+        ("sgm from callbacks", mfn(*msh), mwant),
     ]
     for name, got, want in runs:
         assert sorted(got) == sorted(want), (name, sorted(got))
         for k, v in want.items():
-            assert got[k].dtype == v.dtype and torch.equal(got[k], v), f"rank {rank} {name} {k}"
+            for index, shard in got[k].addressable_shards:
+                assert len(index) == 1 or index in mine, (name, index)  # per image, or a plane
+                assert torch.equal(shard, v[index]), f"rank {rank} {name} {k} at {index}"
+            g = got[k].to_global()
+            assert g.dtype == v.dtype and torch.equal(g, v), f"rank {rank} {name} {k}"
+    # A pixel out of the box route's SAD range in rank 0's rows only:
+    # every rank raises, none goes on into the halo exchanges.
+    bad = lp.clone()
+    bad[0, 0, 0] = 300
+    box = build_sharded_modern_pipeline(ModernParams(num_disparities=8, cost="sad"), mesh)
+    with pytest.raises(ValueError, match="0..255"):
+        box(placed(bad), placed(rp))
     dist.barrier()
     dist.destroy_process_group()
     print(f"rank {rank}: sharded == single-device")

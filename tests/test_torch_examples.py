@@ -46,3 +46,4 @@ def test_torch_serving_demo(tmp_path):
     assert "equal to the host batch: True" in r.stdout
     assert "single pair via pad-and-slice: (1, 128, 128)" in r.stdout
     assert "sharded over {'data': 2, 'rows': 2}" in r.stdout
+    assert "equal to the single-device matcher: True" in r.stdout

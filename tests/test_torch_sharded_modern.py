@@ -69,7 +69,7 @@ def _jax_pipeline(params, shape):
 def assert_same(got, want, keys=KEYS):
     assert sorted(got) == sorted(want), (sorted(got), sorted(want))
     for k in keys:
-        g = got[k].numpy() if isinstance(got[k], torch.Tensor) else got[k]
+        g = got[k].numpy() if isinstance(got[k], torch.Tensor) else np.asarray(got[k])
         w = np.asarray(want[k])
         assert g.dtype == w.dtype and g.shape == w.shape, (k, g.dtype, w.dtype)
         assert np.array_equal(g, w), k

@@ -7,8 +7,12 @@ Launches ``--procs`` OS processes that start ``torch.distributed``
 card by default, NCCL with one GPU per rank and its shards on it; gloo
 with every shard on the CPU only with ``--device cpu``.  Together they run ONE sharded classic step (ghost, exact
 rule) over a (data=1, rows=procs x local) mesh on a
-``utils.synthetic.blob_scene`` pair, and each rank checks the shards it
-holds against the port's numpy oracle (``oracle/pipeline.run_pipeline``).
+``utils.synthetic.blob_scene`` pair.  Each rank builds its inputs shard
+by shard (``Sharded.from_callback``, the JAX tool's
+``jax.make_array_from_callback``: the callback is asked only for the
+shards the rank holds), and checks the output shards it holds
+(``addressable_shards``, by their global index) against the port's numpy
+oracle (``oracle/pipeline.run_pipeline``); no plane is gathered.
 Each rank then times the exchange of one 1024-wide int32 row with its
 ring neighbour (``DistComm.shift``, the halo exchange's message), the
 measured counterpart of ``bench.roofline.Peaks.exchange_latency_us``.
@@ -76,7 +80,8 @@ def worker(port: int, procs: int, pid: int, local: int, device_type: str) -> int
 
     from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
     from stereomatching_tpu_torch.oracle import pipeline as oracle
-    from stereomatching_tpu_torch.parallel import build_sharded_pipeline, distributed, make_mesh
+    from stereomatching_tpu_torch.parallel import (
+        Sharded, build_sharded_pipeline, distributed, make_mesh)
     from stereomatching_tpu_torch.utils.device import resolve_device
     from stereomatching_tpu_torch.utils.imageio import to_brightness
     from stereomatching_tpu_torch.utils.synthetic import blob_scene
@@ -103,15 +108,33 @@ def worker(port: int, procs: int, pid: int, local: int, device_type: str) -> int
     left = to_brightness(left_u8, np.float32)[None]
     right = to_brightness(right_u8, np.float32)[None]
 
-    web = build_sharded_pipeline(params, mesh)(left, right)["web-2"][0].cpu().numpy()
+    # Global arrays assembled shard by shard: each rank serves the global
+    # slices its blocks own (the pod-slice input path).
+    asked = []
+
+    def serve(src):
+        def cb(index):
+            asked.append(index)
+            return src[index]
+        return cb
+
+    gl = Sharded.from_callback(left.shape, mesh, serve(left))
+    gr = Sharded.from_callback(right.shape, mesh, serve(right))
+    mine = {(slice(None), slice(s * 8, (s + 1) * 8), slice(None))
+            for s in range(pid * local, (pid + 1) * local)}
+    if set(asked) != mine or len(asked) != 2 * local:
+        raise AssertionError(f"rank {pid}: the callback was asked for {asked}, "
+                             f"not its own shards {sorted(mine, key=str)}")
+    web = build_sharded_pipeline(params, mesh)(gl, gr)["web-2"]
     # Each rank checks the shards it holds against the oracle.
     want = oracle.run_pipeline(
         to_brightness(left_u8), to_brightness(right_u8), params
     )["web-2"]
     checked = 0
-    for s in range(pid * local, (pid + 1) * local):
-        rows = slice(s * 8, (s + 1) * 8)
-        np.testing.assert_array_equal(web[rows], want[rows])
+    for index, shard in web.addressable_shards:
+        if index not in mine:
+            raise AssertionError(f"rank {pid} holds a shard at {index}, not its own")
+        np.testing.assert_array_equal(shard.cpu().numpy()[0], want[index[1]])
         checked += 1
     _say(f"proc {pid}: {checked} shards bit-identical to oracle")
 

@@ -427,7 +427,7 @@ def main_sharded(route: str, data: int, rows: int) -> None:
     from stereomatching_tpu_torch.models.classic import ClassicPipeline
     from stereomatching_tpu_torch.models.modern import ModernPipeline
     from stereomatching_tpu_torch.parallel import (
-        build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
+        Sharded, build_sharded_modern_pipeline, build_sharded_pipeline, make_mesh)
 
     smi = "{name}, {power_limit}".format(**card(torch.device("cuda", 0)))
     dev = torch.device("cuda", 0)
@@ -449,10 +449,14 @@ def main_sharded(route: str, data: int, rows: int) -> None:
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; sharded "
           f"{label}, mesh data {data} x rows {rows} on cuda:0, {SIZE}x{SIZE}, D={SHIFTS}, "
           f"random u8 pairs, batch 8", flush=True)
-    for name, fn in (("sharded", sharded), ("single device", single)):
-        fn(lt, rt)
+    # The sharded tier's outputs stay on their shards; "block-fed" takes
+    # inputs placed on the mesh before the timed calls.
+    placed = [Sharded.from_global(x, mesh) for x in (lt, rt)]
+    for name, fn, ins in (("sharded", sharded, (lt, rt)), ("sharded block-fed", sharded, placed),
+                          ("single device", single, (lt, rt))):
+        fn(*ins)
         torch.cuda.synchronize()
-        reps = [event_ms(lambda: fn(lt, rt), 3) / 8 for _ in range(5)]
+        reps = [event_ms(lambda: fn(*ins), 3) / 8 for _ in range(5)]
         print(f"[{name}] device-resident ms/pair, 5 repeats of 3: "
               f"{', '.join(f'{r:.4f}' for r in reps)}", flush=True)
 
@@ -571,9 +575,10 @@ def main_k8_against(src_dir: Path) -> None:
     from stereomatching_tpu_torch import BoundaryMode, StereoParams
     from stereomatching_tpu_torch.ops import fused
     from stereomatching_tpu_torch.ops.edges import find_edges
-    from stereomatching_tpu_torch.parallel import make_mesh
+    from stereomatching_tpu_torch.parallel import Sharded, make_mesh
     from stereomatching_tpu_torch.parallel.mesh import run as run_blocks
-    from stereomatching_tpu_torch.parallel.pipeline import prehalo_blocks, shard_extent
+    from stereomatching_tpu_torch.parallel.mesh import shard_extent
+    from stereomatching_tpu_torch.parallel.pipeline import prehalo_blocks
     from stereomatching_tpu_torch.utils.bench import k8_bound_ms, k9_bound_ms
     from stereomatching_tpu_torch.utils.build import _target, resource_usage
 
@@ -628,8 +633,8 @@ def main_k8_against(src_dir: Path) -> None:
             p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule="exact")
             mesh = make_mesh(data=2, rows=4, devices=[dev] * 8)
             bl, hs, ws = shard_extent(tuple(lt.shape), mesh)
-            kw = run_blocks(mesh, bl, hs, ws, lambda sh: prehalo_blocks(
-                sh, sh.scatter(lt), sh.scatter(rt), p)[2])[0]
+            lb, rb = (Sharded.from_global(x, mesh).blocks[0] for x in (lt, rt))
+            kw = run_blocks(mesh, bl, hs, ws, lambda sh: prehalo_blocks(sh, lb, rb, p)[2])[0]
             l_blk, r_blk, halo = kw["l_blk"], kw["r_blk"], kw["halo"]
             b, rows_in, w = l_blk.shape
             kept = rows_in - 2 * halo

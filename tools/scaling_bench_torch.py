@@ -8,11 +8,18 @@ grows with the mesh) or ``cols`` (width grows), keeping the work per
 shard constant, through ``parallel.build_sharded_pipeline`` (ghost, exact
 rule), and reports throughput and efficiency against the 1-shard run.
 Each shard count is timed with the checksum discipline of
-``bench.roofline``: a distinct batch on the device every iteration, each
-output's last element summed there and read back once.  Where each shard
-has a GPU of its own (rows axis), every result also carries the
-efficiency ``roofline.weak_scaling_prediction`` gives from this run's
-1-shard time and the exchange latency of ``roofline.Peaks``.
+``bench.roofline``: a distinct batch on the device every iteration, and
+the outputs read where they lie, as the JAX tool's in-jit sum does
+(``Sharded.reduce``: each block of ``web-2`` and ``output-0`` summed,
+one scalar all-reduce across ranks, no plane gathered), summed
+there and read back once.  Two routes on the same call: global batches
+on the first device, cut into blocks inside each forward
+(``ms_per_batch``), and batches placed block by block
+(``Sharded.from_global``) before the timed loop (``block_fed_*``).
+Where each shard has a GPU of its own (rows axis), every result also
+carries the efficiency ``roofline.weak_scaling_prediction`` gives from
+this run's 1-shard time of the route and the exchange latency of
+``roofline.Peaks``.
 
 With one visible GPU the shards are stacked on ``cuda:0`` (one launch per
 stage over all of them; the numbers exercise the harness, not the
@@ -68,9 +75,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from stereomatching_tpu_torch.bench.roofline import card, checksum, weak_scaling_prediction
+    from stereomatching_tpu_torch.bench.roofline import card, weak_scaling_prediction
     from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
-    from stereomatching_tpu_torch.parallel import build_sharded_pipeline, make_mesh
+    from stereomatching_tpu_torch.parallel import Sharded, build_sharded_pipeline, make_mesh
     from stereomatching_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -86,6 +93,18 @@ def main(argv=None) -> int:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
+    def timed(step, batches, devices):
+        """-> (seconds of the timed batches, their checksum)."""
+        float(step(*batches[0]))  # the kernels' build and first launch
+        sync(devices)
+        acc = torch.zeros((), dtype=torch.float64, device=devices[0])
+        t0 = time.perf_counter()
+        for left, right in batches[1:]:
+            acc += step(left, right)
+        total = float(acc)
+        sync(devices)
+        return time.perf_counter() - t0, total
+
     results = []
     shards = 1
     while shards <= max_shards:
@@ -100,37 +119,38 @@ def main(argv=None) -> int:
 
         def step(left, right, fn=fn):
             out = fn(left, right)
-            return checksum(out["web-2"], out["output-0"])
+            return out["web-2"].reduce() + out["output-0"].reduce()
 
         batches = [
             tuple(torch.from_numpy(rng.integers(0, 256, (args.batch, h, w), dtype=np.uint8))
                   .to(devices[0]).to(torch.float32) / 256.0 for _ in range(2))
             for _ in range(args.iters + 1)
         ]
-        float(step(*batches[0]))  # the kernels' build and first launch
-        sync(devices)
-        acc = torch.zeros((), dtype=torch.float64, device=devices[0])
-        t0 = time.perf_counter()
-        for left, right in batches[1:]:
-            acc += step(left, right)
-        total = float(acc)
-        sync(devices)
-        dt = time.perf_counter() - t0
-        mpix_s = args.batch * args.iters * h * w / dt / 1e6
-        results.append({"shards": shards, "height": h, "width": w, "devices": len(set(devices)),
-                        "ms_per_batch": dt / args.iters * 1e3, "mpix_per_s": mpix_s,
-                        "checksum": total})
+        dt, total = timed(step, batches, devices)
+        placed = [tuple(Sharded.from_global(x, mesh) for x in pair) for pair in batches]
         del batches
+        dt_blk, total_blk = timed(step, placed, devices)
+        del placed
+        if total_blk != total:
+            raise AssertionError(f"{shards} shards: block-fed checksum {total_blk} != "
+                                 f"global-fed {total}")
+        pix = args.batch * args.iters * h * w / 1e6
+        results.append({"shards": shards, "height": h, "width": w, "devices": len(set(devices)),
+                        "ms_per_batch": dt / args.iters * 1e3, "mpix_per_s": pix / dt,
+                        "block_fed_ms_per_batch": dt_blk / args.iters * 1e3,
+                        "block_fed_mpix_per_s": pix / dt_blk,
+                        "checksum": total})
         shards *= 2
 
-    base = results[0]["mpix_per_s"]
-    model = weak_scaling_prediction(params, args.rows_per_shard, args.width, args.batch,
-                                    [r["shards"] for r in results],
-                                    compute_us=results[0]["ms_per_batch"] * 1e3)
-    for r, m in zip(results, model):
-        r["weak_scaling_efficiency"] = r["mpix_per_s"] / (base * r["shards"])
-        own_gpus = args.axis == "rows" and r["devices"] == r["shards"]
-        r["model_efficiency"] = m["predicted_efficiency"] if own_gpus else None
+    for route in ("", "block_fed_"):
+        base = results[0][f"{route}mpix_per_s"]
+        model = weak_scaling_prediction(params, args.rows_per_shard, args.width, args.batch,
+                                        [r["shards"] for r in results],
+                                        compute_us=results[0][f"{route}ms_per_batch"] * 1e3)
+        for r, m in zip(results, model):
+            r[f"{route}weak_scaling_efficiency"] = r[f"{route}mpix_per_s"] / (base * r["shards"])
+            own_gpus = args.axis == "rows" and r["devices"] == r["shards"]
+            r[f"{route}model_efficiency"] = m["predicted_efficiency"] if own_gpus else None
     info = card(dev)
     print(json.dumps({
         "device": info["name"],
