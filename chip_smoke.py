@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stereomatching_tpu_torch``) on one
-NVIDIA GPU: builds the kernels of the eight ``csrc/`` sources, holds each
+NVIDIA GPU: builds the kernels of the eight ``csrc/`` CUDA sources and
+the host codec (``csrc/stereo_io.cpp``), holds each kernel
 against its plain torch version on the card, drives the classic pipeline through
 ``Matcher`` (exact and reference edge rules) and the CLI, and the modern
 pipeline's three routes through ``ModernMatcher`` (4-path SGM, the box
@@ -36,7 +37,13 @@ kernels, K3's per element (``k6_sass``, ``k3_sass``); and K7's time over
 its sweep of windows, D and costs beside each instance's bound
 (``k7_instances``).  Then the input and quality side: ``BatchLoader`` on
 17 PNG pairs feeding the classic and SGM pipelines on the card, with its
-decode + H2D pace beside the device's (a ``{"loader": ...}`` line); the
+decode + H2D pace beside the device's (a ``{"loader": ...}`` line), and
+the host codec (``csrc/stereo_io.cpp``) on those pairs written again as
+adaptive-filter PNGs: its decode bitwise the plain decoder's on every
+image of both sets, the classic and SGM planes fed from the adaptive set
+bitwise the matchers', and its decode, thread, loader, PPM-render and
+PNG-write times beside the plain versions' (a ``{"codec": ...}`` line
+with the host's CPU); the
 numpy oracle against the card's classic artifacts, and the CLI's
 ``--tier oracle``; ``tools/eval_quality_torch.py`` on the card against
 the CPU.  Then the measurement and cross-check side, in this process:
@@ -161,6 +168,83 @@ def shifted_pair(rng, size: int, block: int, shifts: int, sign: int = -1):
     return left, right, disp
 
 
+# PNG filter types by number (PNG spec 9.2).
+PNG_FILTERS = ("none", "sub", "up", "average", "paeth")
+
+
+def adaptive_png(pixels, force=None):
+    """uint8 [H, W] -> (8-bit grayscale PNG bytes as common encoders write
+    them, rows per filter type): each row's filter type 0-4 is the one
+    whose bytes, taken as signed, have the least sum of absolute values
+    (libpng's adaptive heuristic), or ``force`` on every row; zlib level
+    6, IDAT chunks of 8 KiB.  The package's writer keeps filter 0."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = pixels.shape
+    x = pixels.astype(np.int16)
+    up, left, upleft = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    up[1:] = x[:-1]
+    left[:, 1:] = x[:, :-1]
+    upleft[:, 1:] = up[:, :-1]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    cands = np.stack([x, x - left, x - up, x - ((left + up) >> 1), x - paeth]) & 0xFF
+    if force is None:
+        kind = np.minimum(cands, 256 - cands).sum(axis=2, dtype=np.int64).argmin(axis=0)
+    else:
+        kind = np.full(h, force)
+    raw = np.concatenate([kind[:, None], cands[kind, np.arange(h)]], axis=1).astype(np.uint8)
+    comp = zlib.compress(raw.tobytes(), 6)
+
+    def chunk(tag, payload):
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+    out = [b"\x89PNG\r\n\x1a\n", chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))]
+    out += [chunk(b"IDAT", comp[i:i + 8192]) for i in range(0, len(comp), 8192)]
+    out.append(chunk(b"IEND", b""))
+    return b"".join(out), np.bincount(kind, minlength=5)
+
+
+def host_cpu():
+    """-> (the host's CPU from /proc/cpuinfo: its model name, else its
+    vendor, family and model numbers; the CPUs this process may run on)."""
+    import os
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if not key.strip():
+                    break  # the first processor's block ends
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name")
+    if model in (None, "", "unknown"):
+        model = (f"{fields.get('vendor_id', 'unknown vendor')} family "
+                 f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}")
+    return model, len(os.sched_getaffinity(0))
+
+
+def idat_stream(png: bytes) -> bytes:
+    """The zlib stream of a PNG: its IDAT payloads in order."""
+    import struct
+
+    pos, parts = 8, []
+    while pos + 8 <= len(png):
+        (n,) = struct.unpack(">I", png[pos:pos + 4])
+        if png[pos + 4:pos + 8] == b"IDAT":
+            parts.append(png[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    return b"".join(parts)
+
+
 def region_interiors(size: int, margin: int):
     """Mask of the pixels at least ``margin`` away from the border of each
     of ``shifted_pair``'s 4x4 regions."""
@@ -244,12 +328,15 @@ def finished(futures):
 
 
 def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
-    """Phases 28-30: the loader feeding the classic and SGM pipelines, the
+    """Phases 28-30: the loader feeding the classic and SGM pipelines (and
+    the host codec on adaptive-filter PNGs), the
     numpy oracle against the card (and the CLI's ``--tier oracle``), and
     the quality tool on the card against the CPU, at 1024², D=64.
     ``cli_pair``: phase 18's (left, right) uint8 pair."""
+    import multiprocessing
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
+    import zlib
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     import numpy as np
     import torch
@@ -264,8 +351,10 @@ def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
     from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_modern, fused_sgm
     from stereomatching_tpu_torch.oracle import pipeline as oracle
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
+    from stereomatching_tpu_torch.utils import native
     from stereomatching_tpu_torch.utils.imageio import (
-        artifact_ppm_type, ppm_bytes, write_png_gray)
+        ImageType, artifact_ppm_type, png_bytes_plain, png_read_gray_plain, ppm_bytes,
+        ppm_bytes_plain, write_png_gray)
     from stereomatching_tpu_torch.utils.metrics import disparity_report
     from stereomatching_tpu_torch.utils.synthetic import blob_scene
 
@@ -347,24 +436,32 @@ def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
         def pixels(x):
             return (x * 256).to(torch.int32)
 
-        outs, c_counts = counted(lambda: [artifacts_to_numpy(pipe(lb, rb))
-                                          for lb, rb, _ in batches])
-        mouts, m_counts = counted(lambda: [artifacts_to_numpy(mpipe(pixels(lb), pixels(rb)))
-                                           for lb, rb, _ in batches])
-        check(set(c_counts) == {"match_score_edges", "fill_web_holes_range"},
-              f"loader-fed classic launches {c_counts}")
-        check(set(m_counts) == {"sgm_volume", "sgm_directional", "sgm_tail", "fill_invalid"},
-              f"loader-fed SGM launches {m_counts}")
         arts = Matcher(params)(left_u8, right_u8)
         mout = ModernMatcher(mparams)(left_u8, right_u8)
-        for label, got, want in (("classic", outs, arts), ("SGM", mouts, mout)):
-            for b, (_, _, kept) in enumerate(batches):
-                for k, v in want.items():
-                    g, ref = bits(got[b][k]), bits(v[b * BATCH:b * BATCH + kept])
-                    check(g.dtype == ref.dtype and np.array_equal(g[:kept], ref),
-                          f"loader-fed {label} batch {b} {k} differs from the matcher's")
-                    check(all(np.array_equal(g[j], g[kept - 1]) for j in range(kept, BATCH)),
-                          f"loader-fed {label} batch {b} {k}: padding differs from the last pair")
+
+        def hold_fed(tag, fed):
+            """The classic and SGM pipelines on each of the loader's
+            batches ``fed``, every plane bitwise the matchers' (padding
+            the last pair's) -> the launches of each."""
+            outs, c_counts = counted(lambda: [artifacts_to_numpy(pipe(lb, rb))
+                                              for lb, rb, _ in fed])
+            mouts, m_counts = counted(lambda: [artifacts_to_numpy(mpipe(pixels(lb), pixels(rb)))
+                                               for lb, rb, _ in fed])
+            check(set(c_counts) == {"match_score_edges", "fill_web_holes_range"},
+                  f"{tag} classic launches {c_counts}")
+            check(set(m_counts) == {"sgm_volume", "sgm_directional", "sgm_tail", "fill_invalid"},
+                  f"{tag} SGM launches {m_counts}")
+            for label, got, want in (("classic", outs, arts), ("SGM", mouts, mout)):
+                for b, (_, _, kept) in enumerate(fed):
+                    for k, v in want.items():
+                        g, ref = bits(got[b][k]), bits(v[b * BATCH:b * BATCH + kept])
+                        check(g.dtype == ref.dtype and np.array_equal(g[:kept], ref),
+                              f"{tag} {label} batch {b} {k} differs from the matcher's")
+                        check(all(np.array_equal(g[j], g[kept - 1]) for j in range(kept, BATCH)),
+                              f"{tag} {label} batch {b} {k}: padding differs from the last pair")
+            return c_counts, m_counts
+
+        c_counts, m_counts = hold_fed("loader-fed", batches)
         interior = region_interiors(SIZE, params.half + SHIFTS)
         c_hits = [float((arts["web-1"][j] == scenes[i][2] + 1)[interior].mean())
                   for j, i in enumerate(order) if i % 2 == 0]
@@ -378,7 +475,7 @@ def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
         pl0, pr0 = pixels(lb0), pixels(rb0)
         dev_ms = {"classic": cuda_time_ms(lambda: pipe(lb0, rb0), 5) / BATCH,
                   "sgm": cuda_time_ms(lambda: mpipe(pl0, pr0), 3) / BATCH}
-        del batches, outs, mouts, pl0, pr0
+        del batches, pl0, pr0
         fed_ms = {}
         for label, run in (("classic", lambda lb, rb: pipe(lb, rb)),
                            ("sgm", lambda lb, rb: mpipe(pixels(lb), pixels(rb)))):
@@ -387,6 +484,110 @@ def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
                 run(lb, rb)
             torch.cuda.synchronize()
             fed_ms[label] = (time.perf_counter() - t0) * 1e3 / n_pairs
+
+        # Phase 28, the host codec (csrc/stereo_io.cpp): the same 17 pairs
+        # written again as adaptive-filter PNGs (adaptive_png, as common
+        # encoders write them) in the same layout; the codec's decode
+        # bitwise the plain decoder's (one process per CPU) and the pixels
+        # on every image of both sets; decode ms per 1 MP image, codec
+        # against plain, on the first 2 adaptive pairs and on one image with
+        # every row Average or Paeth; the codec's decode of the adaptive set
+        # on 1-8 threads; the loader's decode + H2D on both sets in turns
+        # (filter 0, adaptive, adaptive, filter 0); the classic and SGM
+        # planes fed from the adaptive set == the matchers'; PPM render ms
+        # per 1024² plane, codec against plain, bytes equal.
+        adir = tmp / "adaptive"
+        f0_files, ad_files, pix = [], [], []
+        for a, b in ds.pairs:
+            for path, px in zip((a, b), scenes[index[a]][:2]):
+                f0_files.append(Path(path))
+                ad_files.append(adir / Path(path).relative_to(tmp))
+                pix.append(px)
+        encoded = list(pool.map(adaptive_png, pix))
+        for f, (data, _) in zip(ad_files, encoded):
+            f.parent.mkdir(parents=True, exist_ok=True)
+            f.write_bytes(data)
+        filter_rows = sum(k for _, k in encoded)
+        ads = StereoPairDataset.from_root(str(adir))
+        check([Path(a).relative_to(adir) for a, _ in ads.pairs]
+              == [Path(a).relative_to(tmp) for a, _ in ds.pairs],
+              "the adaptive set's pairs differ from the filter-0 set's")
+        blobs = {"filter 0": [f.read_bytes() for f in f0_files],
+                 "adaptive": [data for data, _ in encoded]}
+        cpu_model, n_cpus = host_cpu()
+        with ProcessPoolExecutor(n_cpus, mp_context=multiprocessing.get_context("spawn")) as procs:
+            plain_out = {k: procs.map(png_read_gray_plain, v) for k, v in blobs.items()}
+            for k, v in blobs.items():
+                for j, (got, want) in enumerate(zip(pool.map(native.png_read_gray, v),
+                                                    plain_out[k])):
+                    check(got.dtype == np.uint8 and np.array_equal(got, want)
+                          and np.array_equal(got, pix[j]),
+                          f"codec decode of {k} image {j} differs from the plain decoder's")
+
+        def best_ms(fn, reps):
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            return min(times) * 1e3
+
+        for j in range(4):
+            check(blobs["filter 0"][j] == png_bytes_plain(pix[j]),
+                  f"codec PNG encode of image {j} differs from the plain writer's")
+        write_ms = {"codec": best_ms(lambda: native.png_write_gray(pix[0]), 3),
+                    "plain": best_ms(lambda: png_bytes_plain(pix[0]), 3)}
+        timed = blobs["adaptive"][:4]
+        decode_ms = {"codec": float(np.mean([best_ms(lambda: native.png_read_gray(d), 5)
+                                             for d in timed])),
+                     "plain": float(np.mean([best_ms(lambda: png_read_gray_plain(d), 1)
+                                             for d in timed])),
+                     "inflate": float(np.mean([best_ms(lambda: zlib.decompress(idat_stream(d)),
+                                                       5) for d in timed])),
+                     "filter_rows": dict(zip(PNG_FILTERS, map(int, sum(
+                         k for _, k in encoded[:4]))))}
+        forced_ms = {}
+        for kind in (3, 4):
+            data = adaptive_png(pix[0], force=kind)[0]
+            check(np.array_equal(native.png_read_gray(data), pix[0]),
+                  f"codec decode of every-row {PNG_FILTERS[kind]} differs from the pixels")
+            forced_ms[PNG_FILTERS[kind]] = {
+                "codec": best_ms(lambda: native.png_read_gray(data), 5),
+                "plain": best_ms(lambda: png_read_gray_plain(data), 1)}
+        threads_ms = {}
+        for k in (1, 2, 4, 8):
+            with ThreadPoolExecutor(k) as tp:
+                t0 = time.perf_counter()
+                list(tp.map(native.png_read_gray, blobs["adaptive"]))
+                threads_ms[k] = (time.perf_counter() - t0) * 1e3 / len(blobs["adaptive"])
+
+        aloader = BatchLoader(ads, batch_size=BATCH)
+        abatches = list(aloader)
+        a_counts = hold_fed("adaptive-fed", abatches)
+        del abatches
+
+        def pace(ld):
+            t0 = time.perf_counter()
+            for _ in ld:
+                pass
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n_pairs
+
+        paces = {"filter 0": [], "adaptive": []}
+        for label, ld in (("filter 0", loader), ("adaptive", aloader), ("adaptive", aloader),
+                          ("filter 0", loader)):
+            paces[label].append(pace(ld))
+        ppm_ms = {}
+        for name, plane, imtype in (("gray_int", arts["web-1"][0], ImageType.GRAY_INT),
+                                    ("binary", arts["edges-1"][0], ImageType.BINARY),
+                                    ("gray_float", pix[0] / 256.0, ImageType.GRAY_FLOAT)):
+            want = ppm_bytes_plain(plane, imtype)
+            check(ppm_bytes(plane, imtype) == want,
+                  f"codec PPM render ({name}) differs from the plain renderer's")
+            ppm_ms[name] = {"codec": best_ms(lambda: ppm_bytes(plane, imtype), 5),
+                            "plain": best_ms(lambda: ppm_bytes_plain(plane, imtype), 2),
+                            "bytes": len(want)}
+        del aloader
     loader_ms = loader_s * 1e3 / n_pairs
     print(f"[28 loader] BatchLoader(StereoPairDataset.from_root(<{n_pairs} PNG pairs, both "
           f"layouts>), batch_size={BATCH}) on {dev}: 3 batches (kept 8, 8, 1, padded by the "
@@ -407,6 +608,35 @@ def input_and_quality_phases(dev, smi: str, cli_pair) -> None:
         "device_resident_ms_per_pair": dev_ms, "loader_fed_wall_ms_per_pair": fed_ms,
         "loader_over_device": {k: loader_ms / v for k, v in dev_ms.items()},
         "card": smi}}), flush=True)
+    host = f"host CPU {cpu_model} x {n_cpus}"
+    print(f"[28 codec] the host codec ({native.library_name()}): decode == the plain decoder "
+          f"== the pixels on all {len(blobs['filter 0'])} filter-0 and "
+          f"{len(blobs['adaptive'])} adaptive-filter PNGs (rows "
+          + ", ".join(f"{n} {int(c)}" for n, c in zip(PNG_FILTERS, filter_rows))
+          + f"); classic and SGM fed from the adaptive set == Matcher / ModernMatcher bitwise "
+          f"(launches {a_counts[0]}, {a_counts[1]}); {smi}; {host}: decode ms per 1 MP image "
+          f"on 2 adaptive pairs codec {decode_ms['codec']:.3f} / plain {decode_ms['plain']:.3f}"
+          f" (zlib.decompress of the stream alone {decode_ms['inflate']:.3f})"
+          + "".join(f", every row {k} codec {v['codec']:.3f} / plain {v['plain']:.3f}"
+                    for k, v in forced_ms.items())
+          + "; codec decode on 1/2/4/8 threads "
+          + " / ".join(f"{v:.3f}" for v in threads_ms.values())
+          + " ms per image; loader decode + H2D ms/pair filter 0 "
+          + " / ".join(f"{v:.3f}" for v in paces["filter 0"]) + ", adaptive "
+          + " / ".join(f"{v:.3f}" for v in paces["adaptive"])
+          + "; PPM render ms per 1024² plane "
+          + ", ".join(f"{k} codec {v['codec']:.3f} / plain {v['plain']:.3f}"
+                      for k, v in ppm_ms.items()) + " (bytes equal); PNG write ms per 1 MP "
+          f"image codec {write_ms['codec']:.3f} / plain {write_ms['plain']:.3f} (bytes equal)",
+          flush=True)
+    print(json.dumps({"codec": {
+        "library": native.library_name(), "images_bitwise": {k: len(v) for k, v in blobs.items()},
+        "adaptive_filter_rows": dict(zip(PNG_FILTERS, map(int, filter_rows))),
+        "decode_ms_per_image": decode_ms, "decode_ms_per_image_every_row": forced_ms,
+        "codec_decode_ms_per_image_by_threads": threads_ms,
+        "loader_decode_h2d_ms_per_pair": paces, "loader_num_threads": loader.num_threads,
+        "ppm_render_ms_per_plane": ppm_ms, "png_write_ms_per_image": write_ms, "card": smi,
+        "host_cpu": cpu_model, "host_cpus": n_cpus}}), flush=True)
     del pipe, mpipe, loader
 
     # Phase 29: the numpy oracle (float64) against the card on one 1024²
@@ -1383,6 +1613,7 @@ def main() -> None:
         K7_BENCH_KERNELS, K7_SWEEP, bound, k1_bound_ms,
         k2_bound_ms, k3_bound_ms, k4_bound_ms, k5_bound_ms, k6_bound_ms, k6_filled, k7_bound_ms,
         k8_bound_ms, k9_bound_ms)
+    from stereomatching_tpu_torch.utils import native
     from stereomatching_tpu_torch.utils.build import build_all
 
     dev = torch.device("cuda", 0)
@@ -1395,11 +1626,12 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
 
     # Phase 2: build all eight kernels from the checkout's sources, one nvcc
-    # per source, all started together.
+    # per source, and the host codec (stereo_io.cpp, host C++ compiler), all
+    # started together.
     t0 = time.perf_counter()
     sources = ["match_score_edges", "fill_web_holes", "sgm_volume", "sgm_directional",
                "sgm_tail", "fill_invalid", "disparity", "match_and_score"]
-    build_all(sources)
+    build_all([*sources, "stereo_io"])
     fused._lib("match_score_edges")
     fused._lib("match_and_score")
     fused_diffusion._lib("fill_web_holes")
@@ -1407,8 +1639,9 @@ def main() -> None:
     for name in ("sgm_volume", "sgm_directional", "sgm_tail"):
         fused_sgm._lib(name)
     fused_modern._lib()
-    print(f"[2 build] {', '.join(s + '.cu' for s in sources)} built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    codec = native.library_name()
+    print(f"[2 build] {', '.join(s + '.cu' for s in sources)} and stereo_io.cpp ({codec}) "
+          f"built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(SEED)
 

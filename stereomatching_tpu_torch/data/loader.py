@@ -10,8 +10,10 @@ hand the next batch to the device while the current one computes.
 Components:
   * ``discover_pairs`` — finds ``(left, right)`` image pairs under a
     root (the reference's fixture layout, plus ``*_left/right`` naming).
-  * ``StereoPairDataset`` — decodes pairs to uint8 [H, W]; validates
-    equal shapes (the reference's CLI check, src/stereo.c:350).
+  * ``StereoPairDataset`` — decodes pairs to uint8 [H, W] through the
+    port's host codec (``utils/imageio.py`` -> ``csrc/stereo_io.cpp``,
+    which releases the interpreter lock, so decode threads overlap);
+    validates equal shapes (the reference's CLI check, src/stereo.c:350).
   * ``BatchLoader`` — iterator of [B, H, W] float32 brightness batches
     (pixel / 256) with a background decode thread pool and ``prefetch``
     batches in flight, placed on ``device`` (default ``"cuda"``; no GPU

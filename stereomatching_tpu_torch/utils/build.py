@@ -1,16 +1,21 @@
-"""Build the CUDA kernels of ``csrc/`` at first use and load them.
+"""Build the native sources of ``csrc/`` at first use and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
-``nvcc`` compiles it in seconds into a shared library that ``ctypes``
-loads.  The library goes to ``build/stereomatching_tpu_torch/`` at the
-root of the checkout (listed in ``.gitignore``), named by a hash of its
-source and flags: an edited source is rebuilt, an unchanged one is
-reused.  Nothing falls back: without ``nvcc`` the build raises.
+Each ``csrc/<name>.cu`` (a CUDA kernel) has a plain C interface (no
+PyTorch headers), so ``nvcc`` compiles it in seconds into a shared
+library that ``ctypes`` loads; ``csrc/<name>.cpp`` (the host codec,
+``stereo_io.cpp``) is compiled the same way by the host C++ compiler
+(``$CXX``, else ``c++`` or ``g++`` on ``PATH``) and linked with zlib.
+The library goes to ``build/stereomatching_tpu_torch/`` at the root of
+the checkout (listed in ``.gitignore``), named by a hash of its source
+and flags: an edited source is rebuilt, an unchanged one is reused.
+Nothing falls back: without the compiler the build raises.  A host
+build imports no torch (the CLI's ``--tier oracle`` runs without it).
 
 Threads of one process (one per device of a sharded mesh) may ask for a
 library at once: ``load`` builds and loads each library once under a
-lock, and every ``nvcc`` writes a temporary file of its own process and
-thread, renamed into place when it is complete.
+lock, and every compiler writes a temporary file of its own process and
+thread, renamed into place when it is complete, so processes that build
+the same library at once each load a complete one.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import functools
 import hashlib
 import os
 import re
+import shlex
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -30,6 +37,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+CXX_LIBS = ("-lz",)
 
 
 def find_nvcc() -> str:
@@ -47,38 +56,73 @@ def find_nvcc() -> str:
     )
 
 
+def find_cxx() -> list[str]:
+    """The host C++ compiler's command: ``$CXX`` (split as a shell
+    would), else ``c++`` or ``g++`` on ``PATH``.  Raises ``RuntimeError``
+    when ``$CXX`` names no program or there is none."""
+    cxx = shlex.split(os.environ.get("CXX", ""))
+    if cxx:
+        if shutil.which(cxx[0]) is None:
+            raise RuntimeError(f"$CXX={os.environ['CXX']!r} names no compiler; the host "
+                               "codec of stereomatching_tpu_torch cannot be built")
+        return cxx
+    for name in ("c++", "g++"):
+        if shutil.which(name):
+            return [name]
+    raise RuntimeError("no C++ compiler found (set CXX or put c++ or g++ on PATH); the "
+                       "host codec of stereomatching_tpu_torch cannot be built")
+
+
+def _host(name: str) -> bool:
+    """Whether ``name`` is a host source (``csrc/<name>.cpp``)."""
+    return (CSRC / f"{name}.cpp").exists()
+
+
 def _target(name: str) -> Path:
-    """Library path of ``csrc/<name>.cu``, named by a hash of the source,
-    the ``*.cuh`` headers and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
-        h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    """Library path of ``csrc/<name>.cu`` or ``.cpp``, named by a hash of
+    the source and the flags (and, for a ``.cu``, the ``*.cuh`` headers)."""
+    if _host(name):
+        h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+        h.update(" ".join(CXX_FLAGS + CXX_LIBS).encode())
+    else:
+        h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+        for hdr in sorted(CSRC.glob("*.cuh")):
+            h.update(hdr.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _command(name: str, out: Path) -> list[str]:
+    """The compiler command that builds ``csrc/<name>`` into ``out``."""
+    if _host(name):
+        return [*find_cxx(), *CXX_FLAGS, "-o", str(out), str(CSRC / f"{name}.cpp"), *CXX_LIBS]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
 def build_all(names) -> list[Path]:
-    """Compile every ``csrc/<name>.cu`` of ``names`` that has no
-    up-to-date library in ``BUILD_DIR``, one ``nvcc`` process per source,
-    all started together -> the libraries' paths.  Raises
-    ``RuntimeError`` naming each source that failed."""
+    """Compile every ``csrc/<name>`` of ``names`` that has no up-to-date
+    library in ``BUILD_DIR``, one compiler process per source, all
+    started together -> the libraries' paths.  Raises ``RuntimeError``
+    naming each source that failed, with the compiler's output."""
     outs = [_target(n) for n in names]
     todo = [(n, o) for n, o in zip(names, outs) if not o.exists()]
     if not todo:
         return outs
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    jobs = []
     for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((cmd, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs.append((_command(name, tmp), tmp, out))
+    procs = [(cmd, tmp, out, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd, tmp, out in jobs]
     errors = []
     for cmd, tmp, out, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            errors.append(f"{Path(cmd[0]).name} failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
     if errors:
@@ -87,8 +131,9 @@ def build_all(names) -> list[Path]:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (plus the ``*.cuh`` it includes) into
-    ``BUILD_DIR`` unless an up-to-date library is there -> its path."""
+    """Compile ``csrc/<name>.cu`` (plus the ``*.cuh`` it includes) or
+    ``csrc/<name>.cpp`` into ``BUILD_DIR`` unless an up-to-date library
+    is there -> its path."""
     return build_all([name])[0]
 
 
@@ -96,7 +141,7 @@ _LOAD_LOCK = threading.Lock()
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` once per process;
+    """Build (if needed) and load ``csrc/<name>`` once per process;
     threads that ask at the same time wait for that one build."""
     with _LOAD_LOCK:
         return _load(name)

@@ -1,16 +1,25 @@
-"""Image I/O of the port's CLI: an 8-bit grayscale PNG/PGM reader, a PNG
+"""Image I/O of the port: an 8-bit grayscale PNG/PGM reader, a PNG
 writer, the PPM-P3 writer byte-compatible with the reference's
 ``write_image`` (src/image.c:71-88), so artifacts dumped here can be
 byte-diffed against the reference binaries' and the JAX package's, and
 its reader (the knife-edge gate's, ``tools/knife_edge_torch.py``).
 
-The port's own copy of what its CLI needs from
-``stereomatching_tpu/utils/imageio.py``, pure numpy (no native library;
-the JAX package's native code has this code as its executable spec, so
-the bytes are the same).  One repair over that copy: a binary PGM's
-payload must be exactly W·H bytes after one whitespace byte or after
-``\\r\\n`` (the other reader skips one byte and reads on, so a CRLF
-header shifts every pixel by one).
+PNG decode, PNG encode and the PPM render go through the port's host
+codec (``csrc/stereo_io.cpp`` by way of ``utils/native.py``, built at
+first use), as the JAX package's ``imageio`` goes through
+``native/stereo_io.cpp``; unlike there, nothing falls back to Python.
+The numpy bodies beside it (``png_read_gray_plain``,
+``png_bytes_plain``, ``ppm_bytes_plain``) are the executable spec the
+codec is held to byte for byte (tests/test_torch_native.py); no caller
+of the port uses them, except the one route ``ppm_bytes`` names.  PGM
+stays in Python.  One repair over the JAX package's copy: a binary
+PGM's payload must be exactly W·H bytes after one whitespace byte or
+after ``\\r\\n`` (the other reader skips one byte and reads on, so a CRLF
+header shifts every pixel by one).  Another: a PNG chunk cut short by
+the end of the file, an IHDR not 13 bytes long and a corrupt zlib
+stream are refused with ``ValueError`` (that copy raised
+``struct.error`` or ``zlib.error`` for them, or read on past a cut
+chunk).
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import zlib
 from enum import Enum
 
 import numpy as np
+
+from stereomatching_tpu_torch.utils import native
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -100,25 +111,38 @@ def _read_pgm_gray(data: bytes, path: str) -> np.ndarray:
 
 def read_png_gray(path: str) -> np.ndarray:
     """Decode an 8-bit grayscale image to uint8 [H, W]: PNG (color
-    type 0) or PGM (P5/P2).  Mirrors the reference's input contract:
-    1-channel grayscale only (src/image.c:27-31); anything else is an
-    error."""
+    type 0, through the codec) or PGM (P5/P2).  Mirrors the reference's
+    input contract: 1-channel grayscale only (src/image.c:27-31);
+    anything else is an error."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] in (b"P5", b"P2"):
         return _read_pgm_gray(data, path)
+    try:
+        return native.png_read_gray(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def png_read_gray_plain(data: bytes) -> np.ndarray:
+    """The plain decoder: 8-bit grayscale PNG bytes -> uint8 [H, W], the
+    codec's executable spec.  Raises ``ValueError`` on malformed input."""
     if data[:8] != _PNG_SIG:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError("not a PNG file")
     pos = 8
     width = height = None
     depth = ctype = interlace = None
     idat = io.BytesIO()
-    while pos < len(data):
+    while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         ctag = data[pos + 4 : pos + 8]
+        if pos + 8 + length > len(data):
+            raise ValueError("truncated PNG chunk")
         chunk = data[pos + 8 : pos + 8 + length]
         pos += 12 + length
         if ctag == b"IHDR":
+            if length != 13:
+                raise ValueError("bad IHDR chunk (length is not 13)")
             width, height, depth, ctype, _comp, _filt, interlace = struct.unpack(
                 ">IIBBBBB", chunk
             )
@@ -127,21 +151,24 @@ def read_png_gray(path: str) -> np.ndarray:
         elif ctag == b"IEND":
             break
     if width is None:
-        raise ValueError(f"{path}: missing IHDR")
+        raise ValueError("missing IHDR")
     if ctype != 0:
         raise ValueError(
-            f"{path}: wrong number of channels (image must be grayscale, "
+            "wrong number of channels (image must be grayscale, "
             f"color type 0, got {ctype})"
         )
     if depth != 8:
-        raise ValueError(f"{path}: only 8-bit grayscale supported, got depth {depth}")
+        raise ValueError(f"only 8-bit grayscale supported, got depth {depth}")
     if interlace != 0:
-        raise ValueError(f"{path}: interlaced PNG not supported")
+        raise ValueError("interlaced PNG not supported")
 
-    raw = zlib.decompress(idat.getvalue())
+    try:
+        raw = zlib.decompress(idat.getvalue())
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG data stream ({e})") from None
     stride = width  # 1 byte/pixel
     if len(raw) < (stride + 1) * height:
-        raise ValueError(f"{path}: truncated PNG data")
+        raise ValueError("truncated PNG data")
 
     out = np.empty((height, width), dtype=np.uint8)
     prev = np.zeros(stride, dtype=np.uint8)
@@ -169,14 +196,23 @@ def read_png_gray(path: str) -> np.ndarray:
                 upleft = int(prev[x])
                 left = int(row[x])
         else:
-            raise ValueError(f"{path}: bad PNG filter type {ftype}")
+            raise ValueError(f"bad PNG filter type {ftype}")
         out[y] = row
         prev = row
     return out
 
 
 def write_png_gray(path: str, pixels: np.ndarray) -> None:
-    """Encode uint8 [H, W] as an 8-bit grayscale PNG (filter 0 rows)."""
+    """Encode uint8 [H, W] as an 8-bit grayscale PNG (filter 0 rows),
+    through the codec."""
+    encoded = native.png_write_gray(pixels)
+    with open(path, "wb") as f:
+        f.write(encoded)
+
+
+def png_bytes_plain(pixels: np.ndarray) -> bytes:
+    """The plain writer: uint8 [H, W] -> 8-bit grayscale PNG bytes
+    (filter 0 rows, one IDAT of zlib level 9), the codec's spec."""
     pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
     h, w = pixels.shape
 
@@ -190,11 +226,8 @@ def write_png_gray(path: str, pixels: np.ndarray) -> None:
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), pixels], axis=1).tobytes()
-    with open(path, "wb") as f:
-        f.write(_PNG_SIG)
-        f.write(chunk(b"IHDR", ihdr))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 9)))
-        f.write(chunk(b"IEND", b""))
+    return (_PNG_SIG + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, 9))
+            + chunk(b"IEND", b""))
 
 
 def to_brightness(pixels: np.ndarray, dtype: np.dtype = np.dtype(np.float64)) -> np.ndarray:
@@ -228,9 +261,9 @@ def _triples(v: np.ndarray) -> bytes:
     return "".join(f"{int(p)} {int(p)} {int(p)}\n" for p in v).encode("ascii")
 
 
-def ppm_bytes(data: np.ndarray, imtype: ImageType) -> bytes:
-    """Render an array as ASCII PPM P3 bytes, byte-identical to the
-    reference's ``write_image`` (src/image.c:71-88): header
+def ppm_bytes_plain(data: np.ndarray, imtype: ImageType) -> bytes:
+    """The plain renderer: an array as ASCII PPM P3 bytes, byte-identical
+    to the reference's ``write_image`` (src/image.c:71-88): header
     ``P3\\n{w} {h}\\n255\\n`` then one ``{v} {v} {v}\\n`` line per pixel,
     with min/max computed over the full array for GRAY_INT
     (src/image.c:78-79)."""
@@ -244,6 +277,17 @@ def ppm_bytes(data: np.ndarray, imtype: ImageType) -> bytes:
     else:
         raise ValueError(imtype)
     return f"P3\n{w} {h}\n255\n".encode("ascii") + _triples(v.ravel())
+
+
+def ppm_bytes(data: np.ndarray, imtype: ImageType) -> bytes:
+    """``ppm_bytes_plain``'s bytes, rendered by the codec."""
+    data = np.asarray(data)
+    if imtype == ImageType.GRAY_FLOAT and not ((data >= 0) & (data < 1)).all():
+        # Values outside [0, 1) map outside 0..255, which the reference
+        # prints with %d, digits and sign and all (the codec renders only
+        # 0..255): a plane no artifact of the pipelines holds.
+        return ppm_bytes_plain(data, imtype)
+    return native.ppm_render(data, imtype.value)
 
 
 def write_ppm(path: str, data: np.ndarray, imtype: ImageType) -> None:

@@ -194,11 +194,19 @@ def test_cli_oracle_refuses_modern(pair_paths, tmp_path, capsys):
 
 
 def test_cli_oracle_imports_no_torch(pair_paths, tmp_path):
+    """The oracle tier, the host codec's first call included (its build
+    into an empty directory, the PNG reads and the PPM writes), imports
+    no torch and nothing of JAX."""
     code = (
         "import sys\n"
+        "from pathlib import Path\n"
         "from stereomatching_tpu_torch import cli\n"
+        "from stereomatching_tpu_torch.utils import build, native\n"
+        f"build.BUILD_DIR = Path({str(tmp_path / 'build')!r})\n"
         f"assert cli.main([{pair_paths[0]!r}, {pair_paths[1]!r}, '--shifts', '6', "
         f"'--tier', 'oracle', '--outdir', {str(tmp_path / 'o')!r}]) == 0\n"
+        "assert native._lib.cache_info().currsize == 1\n"
+        "assert len(list(build.BUILD_DIR.glob('stereo_io-*.so'))) == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', "
         "'stereomatching_tpu'))\n"
         "assert not bad, bad\n"

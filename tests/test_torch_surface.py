@@ -123,10 +123,11 @@ def test_compare_artifacts_matches_jax(case):
 
 def test_package_imports_build_no_kernel_and_import_no_jax():
     """``import stereomatching_tpu_torch`` imports no torch; importing
-    ``models`` and ``ops`` (every kernel wrapper module with them) calls
-    no library build and imports nothing of JAX."""
+    ``models`` and ``ops`` (every kernel wrapper module with them), and
+    the host codec's binding with the modules that call it, calls no
+    library build, loads no library and imports nothing of JAX."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "import stereomatching_tpu_torch as p\n"
         "assert p.NUM_SHIFTS == 30 and p.DEFAULT_TIMES == 32\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'torch']\n"
@@ -139,7 +140,11 @@ def test_package_imports_build_no_kernel_and_import_no_jax():
         "fused_sgm\n"
         "from stereomatching_tpu_torch.models import build_classic_pipeline\n"
         "from stereomatching_tpu_torch.ops import match_and_score_kernel\n"
-        "assert not list(build.BUILD_DIR.glob('*.tmp'))\n"
+        "import stereomatching_tpu_torch.utils.native, stereomatching_tpu_torch.utils.imageio\n"
+        "import stereomatching_tpu_torch.data.loader, stereomatching_tpu_torch.cli\n"
+        "from stereomatching_tpu_torch.utils import native\n"
+        "assert native._lib.cache_info().currsize == 0\n"
+        "assert not list(build.BUILD_DIR.glob(f'*.{os.getpid()}.*.tmp'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'stereomatching_tpu'))\n"
         "assert not bad, bad\n"
     )
