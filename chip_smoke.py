@@ -66,6 +66,14 @@ and ``BatchLoader(mesh=...)`` batches, every output block bitwise the
 global-fed route's and every output after ``to_global`` the single
 device's, with the ms/pair of the three routes (a ``{"sharded_io": ...}``
 line); with several GPUs visible, the classic case over all of them.
+Then phase 36, the sizes the JAX package runs: the classic pipeline at
+7680x4320, batch 4, in both modes and rules, and K9 on its rows 4
+blocks; ``tools/size_sweep_torch.py`` over its ladder, its 8K checksum
+against the plain route's; box, SGM and the 8-direction stack at
+1110x1390 x 256 disparities, batch 8 (an SGM volume past 2^31
+elements), each image against the plain route; K1, K8 and K9 at D up to
+1952; every kernel's time there beside its bound (a ``{"full_sizes":
+...}`` line).
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -262,32 +270,18 @@ def plain_artifacts(left, right, params):
     """The classic slice's artifact dict from the kernels' plain torch
     versions, on the inputs' device: the comparison the kernel path is
     held to (either edge rule)."""
-    from stereomatching_tpu_torch.ops.argmax import match_and_score
-    from stereomatching_tpu_torch.ops.contour import contour_bands
-    from stereomatching_tpu_torch.ops.edges import find_edges
-    from stereomatching_tpu_torch.ops.fused import match_score_edges_reference
-    from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range_reference
+    from stereomatching_tpu_torch.models.classic import classic_forward_reference
 
-    if params.edge_rule == "exact":
-        best, winner, edges_l, edges_r = match_score_edges_reference(left, right, params)
-    else:
-        edges_l, edges_r = (find_edges(x, params.threshold, params.mode, "reference")
-                            for x in (left, right))
-        best, winner = match_and_score(edges_l, edges_r, params)
-    web, min_e, max_e = fill_web_holes_range_reference(winner, params.times)
-    return {
-        "edges-1": edges_l, "edges-2": edges_r, "score_best": best, "web-1": winner,
-        "web-2": web, "output-0": contour_bands(web, params.lines, min_e, max_e),
-        "min_elevation": min_e, "max_elevation": max_e,
-    }
+    return classic_forward_reference(left, right, params)
 
 
-def cuda_time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls after one warmup,
-    from CUDA events around the whole run."""
+def cuda_time_ms(fn, iters: int, warmup: bool = True) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls after one warmup
+    (none without ``warmup``), from CUDA events around the whole run."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -297,6 +291,17 @@ def cuda_time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def load_tool(name: str):
+    """The module of ``tools/<name>.py``, imported in this process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # the gate's dataclass resolves through sys.modules
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def start_jobs(pool, jobs):
@@ -782,7 +787,6 @@ def measurement_phases(dev, smi: str, cli_pair) -> None:
     oracle's reference-rule ones, all in this process.  ``cli_pair``:
     phase 18's (left, right) uint8 pair."""
     import contextlib
-    import importlib.util
     import io
     import tempfile
 
@@ -813,13 +817,6 @@ def measurement_phases(dev, smi: str, cli_pair) -> None:
         with contextlib.redirect_stdout(buf):
             out = fn()
         return out, buf.getvalue(), {k: w.launches for k, w in wrappers.items() if w.launches}
-
-    def tool(name):
-        spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod  # the gate's dataclass resolves through sys.modules
-        spec.loader.exec_module(mod)
-        return mod
 
     def json_lines(text):
         return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
@@ -862,7 +859,7 @@ def measurement_phases(dev, smi: str, cli_pair) -> None:
     # Phase 32: the weak-scaling tool on cuda:0 at 1, 2 and 4 row shards
     # (256 rows x 1024 a shard, batch 2), the shards stacked on the card.
     t0 = time.perf_counter()
-    rc, out, w_counts = counted(lambda: tool("scaling_bench_torch").main(["--max-shards", "4"]))
+    rc, out, w_counts = counted(lambda: load_tool("scaling_bench_torch").main(["--max-shards", "4"]))
     scaling = json.loads(out)
     check(rc == 0 and [r["shards"] for r in scaling["results"]] == [1, 2, 4]
           and all(r["devices"] == 1 and np.isfinite(r["checksum"]) for r in scaling["results"]),
@@ -884,7 +881,7 @@ def measurement_phases(dev, smi: str, cli_pair) -> None:
     # its --tier oracle --edge-rule reference ones (the CLI's defaults
     # otherwise: D=30, sw 21, times 32, lines 10).
     t0 = time.perf_counter()
-    gate = tool("knife_edge_torch")
+    gate = load_tool("knife_edge_torch")
     notes = []
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -1578,6 +1575,315 @@ def sharded_io_phase(dev, smi: str) -> None:
           + f"; {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"sharded_io": {"ms_per_pair": times, "batch": BATCH, "size": SIZE,
                                      "card": smi}}), flush=True)
+
+
+# Phase 36's sizes: the sweep tool's 8K rung (its batch there is 4) and
+# Middlebury 2005's full resolution at BASELINE.json configs[2]'s 256
+# disparities, whose batch of 8 puts the SGM volume past 2^31 elements.
+FULL_SIZE = (7680, 4320)
+MB_H, MB_W, MB_D, MB_BATCH = 1110, 1390, 256, 8
+# Phase 36's classic matchers past D 200: (D, square width), at the card's
+# shared-memory limit for sw 255 (D 1952) among them.
+BIG_SHIFTS = [(d, sw) for d in (256, 1024, 1952) for sw in (255, 21)]
+
+
+def full_sizes_phase(dev, smi: str) -> None:
+    """Phase 36: the port at the sizes the JAX package runs.  (a) The
+    classic pipeline at 7680x4320, batch 4 (the size-sweep tool's batch
+    there): ghost with the exact rule (K1, K2, contour) and wrap with the
+    reference rule (torch edges, K8, K2), every artifact against the plain
+    route on the card, and K9 on the blocks of a rows 4 mesh of the card
+    against its plain version; then ``tools/size_sweep_torch.py`` over its whole
+    ladder at one iteration, its 8K checksum against the plain route's
+    sum of the same four planes on the same inputs.  (b) The modern
+    pipeline at 1110x1390 (Middlebury 2005's full size), D 256, batch 8
+    (an SGM volume of 3.16 G elements, past 2^31), with the LR check and
+    the sub-pixel plane: the box route (SAD, window 9: K7 twice, K6), SGM
+    (census, 4 paths: K3, K4 x 4, K5, K6) and the 8-direction stack with
+    median and uniqueness (K4 x 8, K5 with the second best) on textured
+    scenes shifted by known disparities, each image's planes against the
+    plain route run on that image alone, and the disparity against the
+    shift.  (c) K1, K8 and K9 (on a rows 2 mesh of the card) at D 256,
+    1024 and 1952, sw 255 and 21, on rows wider than D (both modes) and
+    narrower (wrap), against their plain versions.  Tolerance 0
+    everywhere, launch counts checked.  Prints one line, each kernel's
+    time at these shapes beside its bound, and a ``{"full_sizes": ...}``
+    line."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from stereomatching_tpu_torch.config import BoundaryMode, ModernParams, StereoParams
+    from stereomatching_tpu_torch.models import classic, modern
+    from stereomatching_tpu_torch.ops import costvolume, fused, fused_diffusion, fused_modern
+    from stereomatching_tpu_torch.ops import fused_sgm
+    from stereomatching_tpu_torch.parallel import Sharded, make_mesh
+    from stereomatching_tpu_torch.parallel.mesh import run as run_blocks
+    from stereomatching_tpu_torch.parallel.mesh import shard_extent
+    from stereomatching_tpu_torch.parallel.pipeline import prehalo_blocks
+    from stereomatching_tpu_torch.utils import bench
+    from stereomatching_tpu_torch.utils.synthetic import textured_shift
+
+    t_phase = time.perf_counter()
+    sweep_tool = load_tool("size_sweep_torch")
+    rng = np.random.default_rng(SEED + 36)
+    wrappers = {"match_score_edges": fused.match_score_edges,
+                "match_and_score": fused.match_and_score,
+                "match_and_score_prehalo": fused.match_and_score_prehalo,
+                "fill_web_holes_range": fused_diffusion.fill_web_holes_range,
+                "sgm_volume": fused_sgm.sgm_volume,
+                "sgm_directional": fused_sgm.sgm_directional,
+                "sgm_tail": fused_sgm.sgm_tail,
+                "fill_invalid": fused_diffusion.fill_invalid,
+                "disparity": fused_modern.disparity}
+
+    def counted(fn):
+        """-> (fn(), {wrapper: launches during it}), counted from zero."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    def hold(what, got, want):
+        """Every output of ``got`` bitwise its plain ``want``."""
+        check(sorted(got) == sorted(want), f"[36] {what}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            check(same(got[k], want[k]), f"[36 full sizes] {what}: {k} differs from the plain "
+                  f"route (max |d| {max_abs_diff(got[k], want[k])})")
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated(dev) / 2**20
+
+    configs, times = [], {}
+
+    def k9_kwargs(mesh, left, right, p):
+        """K9's keyword arguments on the blocks the sharded classic slice
+        gives it on ``mesh`` (every shard on the card: one block)."""
+        bl, hs, ws = shard_extent(tuple(left.shape), mesh)
+        lb, rb = (Sharded.from_global(x, mesh).blocks[0] for x in (left, right))
+        return run_blocks(mesh, bl, hs, ws, lambda sh: prehalo_blocks(sh, lb, rb, p)[2])[0]
+
+    def k9_bound(kw, w, p):
+        """``k9_bound_ms`` of K9's call on the blocks ``kw``, ``w`` wide."""
+        blocks, rows = kw["l_blk"].shape[:2]
+        return bench.k9_bound_ms(kw["l_blk"].numel() + kw["r_blk"].numel(),
+                                 blocks * (rows - 2 * kw["halo"]) * w, blocks * 2 * p.half * w,
+                                 p.num_shifts)
+
+    def kernel_time(key, fn, b, iters=2):
+        """``fn``'s device ms (a warmup, then ``iters`` calls) beside
+        ``b`` = (bound ms, what sets it)."""
+        times[key] = {"ms": cuda_time_ms(fn, iters), "bound_ms": b[0], "bound_by": b[1]}
+
+    # (a) The classic pipeline at 8K, batch 4, on the sweep tool's first
+    # pair of that size.
+    w8, h8 = FULL_SIZE
+    b8 = sweep_tool.batch_for(w8, h8)
+    check(b8 == 4, f"the sweep tool's batch at 8K is {b8}")
+    lt, rt = (torch.from_numpy(x).to(dev).to(torch.float32) / 256.0
+              for x in sweep_tool.sweep_pairs(w8, h8, 1)[0])
+    npix8 = b8 * w8 * h8
+    for mode, rule in ((BoundaryMode.GHOST, "exact"), (BoundaryMode.WRAP, "reference")):
+        p = StereoParams(num_shifts=SHIFTS, mode=mode, edge_rule=rule)
+        pipe = classic.ClassicPipeline(p)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, counts = counted(lambda: pipe(lt, rt))
+        peak = peak_mib()
+        match = "match_score_edges" if rule == "exact" else "match_and_score"
+        plan = fused_diffusion.k2_plan(p.times, classic.winner_bound(p))
+        want = {match: 1, "fill_web_holes_range": plan.launches}
+        check(counts == want, f"[36] classic 8K {mode.value}/{rule} launches {counts}, want {want}")
+        ms = cuda_time_ms(lambda: pipe(lt, rt), 1) / b8
+        plain = []
+        plain_ms = cuda_time_ms(lambda: plain.append(classic.classic_forward_reference(lt, rt, p)),
+                                1, warmup=False) / b8
+        hold(f"classic {w8}x{h8} {mode.value}/{rule}", got, plain[0])
+        del plain
+        configs.append({"config": f"classic {mode.value}/{rule}", "shape": [b8, h8, w8],
+                        "d": SHIFTS, "ms_per_pair": ms, "plain_ms_per_pair": plain_ms,
+                        "peak_mib": peak, "plain_stages": classic.plain_stages(p),
+                        "launches": counts})
+        if rule == "exact":
+            kernel_time("K1 match_score_edges 8K", lambda: fused.match_score_edges(lt, rt, p),
+                        bench.k1_bound_ms(npix8, SHIFTS))
+            win = got["web-1"]
+            kernel_time("K2 fill_web_holes_range 8K", lambda: fused_diffusion.fill_web_holes_range(
+                win, p.times, classic.winner_bound(p)), bench.k2_bound_ms(npix8, p.times))
+        else:
+            el, er = got["edges-1"], got["edges-2"]
+            kernel_time("K8 match_and_score 8K", lambda: fused.match_and_score(el, er, p),
+                        bench.k8_bound_ms(npix8, SHIFTS))
+            # K9 on the blocks of a rows 4 mesh of the card: 4 x 1080-row
+            # shards of each image under halos of 10 rows.
+            kw = k9_kwargs(make_mesh(data=1, rows=4, devices=[dev] * 4), lt, rt, p)
+            got9, counts = counted(lambda: fused.match_and_score_prehalo(params=p, **kw))
+            check(counts == {"match_and_score_prehalo": 1}, f"[36] K9 8K launches {counts}")
+            hold(f"K9 {w8}x{h8} rows 4 {mode.value}/{rule}", dict(enumerate(got9)),
+                 dict(enumerate(fused.match_and_score_prehalo_reference(params=p, **kw))))
+            kernel_time("K9 match_and_score_prehalo 8K rows 4", lambda: (
+                fused.match_and_score_prehalo(params=p, **kw)), k9_bound(kw, w8, p))
+            del kw, got9
+        del got
+    del lt, rt
+    torch.cuda.empty_cache()
+
+    # The size-sweep tool over its ladder, one timed iteration a size; the
+    # 8K checksum against the plain route's on the same two batches.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ladder, counts = counted(lambda: sweep_tool.sweep(sweep_tool.SIZES, SHIFTS, 1, dev))
+        plain8 = sweep_tool.run_size(w8, h8, SHIFTS, 1, dev, plain=True)
+    check([r["size"] for r in ladder] == [f"{w}x{h}" for w, h in sweep_tool.SIZES]
+          and all(r["route"] == "kernels" and r["device"] == str(dev) for r in ladder),
+          f"[36] sweep tool records {ladder}")
+    check(set(counts) == {"match_score_edges", "fill_web_holes_range"},
+          f"[36] sweep tool launches {counts}")
+    check(ladder[-1]["batch"] == b8 and ladder[-1]["checksum"] == plain8["checksum"],
+          f"[36] sweep tool 8K checksum {ladder[-1]['checksum']} != the plain route's "
+          f"{plain8['checksum']}")
+    torch.cuda.empty_cache()
+
+    # (b) 1110x1390, D 256, batch 8: the three modern routes on textured
+    # scenes whose right image is the left one shifted by 17 + 30 i.
+    shifts = [17 + 30 * i for i in range(MB_BATCH)]
+    scenes = [textured_shift(MB_H, MB_W, s, seed=SEED + i) for i, s in enumerate(shifts)]
+    left, right = (torch.from_numpy(np.stack([sc[k] for sc in scenes])).to(dev) for k in (0, 1))
+    del scenes
+    check(MB_BATCH * MB_H * MB_W * MB_D > 2**31, "the SGM volume stays under 2^31 elements")
+    mb_npix = MB_BATCH * MB_H * MB_W
+    routes = {
+        "box SAD window 9": (ModernParams(num_disparities=MB_D, window=9, cost="sad"),
+                             {"disparity": 2, "fill_invalid": 1}),
+        "SGM census 4 paths": (ModernParams(num_disparities=MB_D, aggregation="sgm",
+                                            cost="census"),
+                               {"sgm_volume": 1, "sgm_directional": 4, "sgm_tail": 1,
+                                "fill_invalid": 1}),
+        "SGM census 8 paths, median, uniqueness": (
+            ModernParams(num_disparities=MB_D, aggregation="sgm", cost="census",
+                         sgm_directions=8, median_filter=True, uniqueness=True),
+            {"sgm_volume": 1, "sgm_directional": 8, "sgm_tail": 1, "fill_invalid": 1}),
+    }
+    truth = []
+    for name, (p, want) in routes.items():
+        check(modern.plain_stages(p) == {}, f"[36] {name} runs {modern.plain_stages(p)} plain")
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, counts = counted(lambda: modern.modern_forward(left, right, p))
+        peak = peak_mib()
+        check(counts == want, f"[36] {name} launches {counts}, want {want}")
+        ms = cuda_time_ms(lambda: modern.modern_forward(left, right, p), 1) / MB_BATCH
+        plain_ms = 0.0
+        for i in range(MB_BATCH):
+            plain = []
+            plain_ms += cuda_time_ms(lambda: plain.append(modern.modern_forward_reference(
+                left[i:i + 1], right[i:i + 1], p)), 1, warmup=False) / MB_BATCH
+            hold(f"{name} image {i}", {k: v[i:i + 1] for k, v in got.items()}, plain[0])
+            del plain
+        # The left disparity against the shift, away from the borders the
+        # window and the shift reach.
+        disp = got["disparity"].cpu().numpy()
+        hits = [float((disp[i, 16:-16, s + 16:-16] == s).mean()) for i, s in enumerate(shifts)]
+        check(min(hits) >= 0.99, f"[36] {name}: true disparity on {hits}")
+        truth.append(min(hits))
+        configs.append({"config": name, "shape": [MB_BATCH, MB_H, MB_W], "d": MB_D,
+                        "ms_per_pair": ms, "plain_ms_per_pair": plain_ms, "peak_mib": peak,
+                        "plain_stages": modern.plain_stages(p), "launches": counts,
+                        "true_disparity_share_min": min(hits)})
+        if p.aggregation == "box":
+            pix = [x.to(torch.int32) for x in (left, right)]
+            kernel_time("K7 disparity 1.5MP", lambda: fused_modern.disparity(*pix, p, "left"),
+                        bench.k7_bound_ms("sad", mb_npix, MB_D))
+            del pix
+            sub, valid = got["subpixel"], got["valid"]
+            kernel_time("K6 fill_invalid 1.5MP", lambda: fused_diffusion.fill_invalid(
+                sub, valid, p.fill_iterations),
+                bench.k6_bound_ms(mb_npix, bench.k6_filled(valid, p.fill_iterations)))
+            del sub, valid
+        del got
+    # K3, K4 (4 and 8 paths), K5 (with and without the second best) alone
+    # on the SGM routes' volume.
+    p = routes["SGM census 4 paths"][0]
+    codes = [costvolume.census_transform(x.to(torch.int32)).contiguous() for x in (left, right)]
+    vol = fused_sgm.sgm_volume(*codes, MB_D, "census", torch.int8)
+    nvox = vol.numel()
+    kernel_time("K3 sgm_volume 1.5MP", lambda: fused_sgm.sgm_volume(
+        *codes, MB_D, "census", torch.int8), bench.k3_bound_ms(mb_npix, MB_D, 1, "census"))
+    del codes
+    for paths, uniq in ((4, False), (8, True)):
+        agg = fused_sgm.sgm_aggregate_paths(vol, p.sgm_p1, p.sgm_p2, torch.int16, paths)
+        kernel_time(f"K4 sgm_directional {paths} paths 1.5MP", lambda: fused_sgm.sgm_aggregate_paths(
+            vol, p.sgm_p1, p.sgm_p2, torch.int16, paths), bench.k4_bound_ms(nvox, paths, 1, 2))
+        kernel_time(f"K5 sgm_tail{' with the second best' if uniq else ''} 1.5MP",
+                    lambda: fused_sgm.sgm_tail(agg, uniq),
+                    bench.k5_bound_ms(mb_npix, MB_D, 2, uniq))
+        del agg
+    del vol, left, right
+    torch.cuda.empty_cache()
+
+    # (c) K1, K8 and K9 past D 200: 2 x 300 rows (K9: a rows 2 mesh of the
+    # card, shards of 150 rows under halos of up to 127), rows D + 333
+    # wide in both modes and narrower than D in wrap mode (D // 2 + 7, or
+    # the square width where that is wider: the window fits the image).
+    mesh = make_mesh(data=1, rows=2, devices=[dev] * 2)
+    n_big = 0
+    for d, sw in BIG_SHIFTS:
+        for mode, w in ((BoundaryMode.GHOST, d + 333), (BoundaryMode.WRAP, d + 333),
+                        (BoundaryMode.WRAP, max(d // 2 + 7, sw))):
+            p = StereoParams(num_shifts=d, square_width=sw, mode=mode, edge_rule="exact")
+            pr = dataclasses.replace(p, edge_rule="reference")
+            check(classic.classic_kernels_supported(p)[0], f"[36] K1 refuses D {d} sw {sw}")
+            lt, rt = (torch.from_numpy(u8_to_brightness(rng.integers(0, 256, (2, 300, w),
+                                                                     dtype=np.uint8))).to(dev)
+                      for _ in range(2))
+            el, er = (torch.from_numpy(rng.integers(0, 2, (2, 300, w), dtype=np.int32)).to(dev)
+                      for _ in range(2))
+            kw = k9_kwargs(mesh, lt, rt, pr)
+            cfg = f"D {d} sw {sw} {mode.value} 2x300x{w}"
+            cases = (("K1", "match_score_edges", lambda: fused.match_score_edges(lt, rt, p),
+                      lambda: fused.match_score_edges_reference(lt, rt, p)),
+                     ("K8", "match_and_score", lambda: fused.match_and_score(el, er, p),
+                      lambda: fused.match_and_score_reference(el, er, p)),
+                     ("K9", "match_and_score_prehalo",
+                      lambda: fused.match_and_score_prehalo(params=pr, **kw),
+                      lambda: fused.match_and_score_prehalo_reference(params=pr, **kw)))
+            for kernel, name, call, plain_call in cases:
+                got, counts = counted(call)
+                check(counts == {name: 1}, f"[36] {kernel} {cfg} launches {counts}")
+                want = plain_call()
+                hold(f"{kernel} {cfg}", dict(enumerate(got)), dict(enumerate(want)))
+                n_big += 1
+            if d == 1952 and mode == BoundaryMode.WRAP and w > d:
+                npix = lt.numel()
+                tag = f"D 1952 sw {sw} wrap 2x300x{w}"
+                kernel_time(f"K1 match_score_edges {tag}", cases[0][2],
+                            bench.k1_bound_ms(npix, d))
+                kernel_time(f"K8 match_and_score {tag}", cases[1][2], bench.k8_bound_ms(npix, d))
+                kernel_time(f"K9 match_and_score_prehalo {tag}", cases[2][2], k9_bound(kw, w, pr))
+            del lt, rt, el, er, kw
+    torch.cuda.empty_cache()
+
+    print(f"[36 full sizes] {smi}: classic {w8}x{h8} batch {b8} (ghost/exact, wrap/reference): "
+          f"every artifact == the plain route bitwise (K9 on rows 4 blocks too), "
+          + ", ".join(f"{c['config']} {c['ms_per_pair']:.4f} ms/pair (plain "
+                      f"{c['plain_ms_per_pair']:.4f}, peak {c['peak_mib']:.0f} MiB)"
+                      for c in configs[:2])
+          + f"; tools/size_sweep_torch.py over {len(ladder)} sizes at 1 iteration: "
+          + ", ".join(f"{r['size']} x{r['batch']} {r['ms_per_pair']:.4f}" for r in ladder)
+          + f" ms/pair, 8K checksum {ladder[-1]['checksum']} == the plain route's; "
+          f"{MB_H}x{MB_W}, D {MB_D}, batch {MB_BATCH} ({MB_BATCH * MB_H * MB_W * MB_D} volume "
+          f"elements): every plane of each image == the plain route bitwise, "
+          + ", ".join(f"{c['config']} {c['ms_per_pair']:.4f} ms/pair (plain "
+                      f"{c['plain_ms_per_pair']:.4f}, peak {c['peak_mib']:.0f} MiB, true "
+                      f"disparity on >= {c['true_disparity_share_min']:.4%})"
+                      for c in configs[2:])
+          + f"; K1, K8, K9 at (D, sw) {', '.join(map(str, BIG_SHIFTS))} x 3 row widths: {n_big} "
+          f"cases == plain bitwise; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(json.dumps({"full_sizes": {"card": smi, "configs": configs, "kernels": times,
+                                     "size_sweep": ladder, "size_sweep_plain_8k": plain8}}),
+          flush=True)
 
 
 def timing_line(stdout: str):
@@ -2825,6 +3131,8 @@ def main() -> None:
     random_routes_phase(dev, smi)
     # Phase 35: the sharded tier fed and read block by block.
     sharded_io_phase(dev, smi)
+    # Phase 36: the sizes the JAX package runs.
+    full_sizes_phase(dev, smi)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [

@@ -39,7 +39,8 @@ from stereomatching_tpu_torch.ops.edges import find_edges
 from stereomatching_tpu_torch.ops.fused import (
     kernel_refusal, match_and_score, match_and_score_reference, match_score_edges,
     match_score_edges_reference)
-from stereomatching_tpu_torch.ops.fused_diffusion import fill_web_holes_range
+from stereomatching_tpu_torch.ops.fused_diffusion import (
+    fill_web_holes_range, fill_web_holes_range_reference)
 
 Artifacts = Dict[str, torch.Tensor]
 
@@ -55,7 +56,10 @@ def classic_finish(
     bound on the web's values (``fill_web_holes_range``'s); the pipelines
     pass ``num_shifts + 1`` for the winner plane they computed, the resume
     path ``None`` (a web read from a file proves nothing)."""
-    web, min_e, max_e = fill_web_holes_range(winner, params.times, value_bound)
+    return _finish(*fill_web_holes_range(winner, params.times, value_bound), params)
+
+
+def _finish(web, min_e, max_e, params: StereoParams) -> Artifacts:
     return {
         "web-2": web,
         "output-0": contour_bands(web, params.lines, min_e, max_e),
@@ -97,11 +101,11 @@ def plain_stages(params: StereoParams, sharded: bool = False) -> Dict[str, str]:
     return {} if ok else {_match_stage(params, sharded): why}
 
 
-def _match_fn(params: StereoParams) -> Callable:
+def _match_fn(params: StereoParams, plain: bool = False) -> Callable:
     """The single-device matching stage of ``params``: K1's or K8's
-    wrapper, or its plain version where the kernel does not take the
-    config."""
-    kernel, _ = classic_kernels_supported(params)
+    wrapper, or its plain version with ``plain`` or where the kernel does
+    not take the config."""
+    kernel = not plain and classic_kernels_supported(params)[0]
     if params.edge_rule == "exact":
         return match_score_edges if kernel else match_score_edges_reference
     return match_and_score if kernel else match_and_score_reference
@@ -113,9 +117,10 @@ def _edges(left: torch.Tensor, right: torch.Tensor, params: StereoParams):
 
 
 def _forward(
-    left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool
+    left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool,
+    plain: bool = False,
 ) -> Artifacts:
-    match = _match_fn(params)
+    match = _match_fn(params, plain)
     if params.edge_rule == "exact":
         best, winner, edges_l, edges_r, *sub = match(left, right, params, subpixel)
     else:
@@ -126,7 +131,8 @@ def _forward(
         "edges-2": edges_r,
         "score_best": best,
         "web-1": winner,
-        **classic_finish(winner, params, winner_bound(params)),
+        **(_finish(*fill_web_holes_range_reference(winner, params.times), params) if plain
+           else classic_finish(winner, params, winner_bound(params))),
     }
     if subpixel:
         out["subpixel"] = sub[0]
@@ -155,6 +161,18 @@ def classic_forward_batched(
             f"classic_forward_batched takes [B, H, W], got {tuple(left.shape)}"
         )
     return _forward(left, right, params, subpixel)
+
+
+def classic_forward_reference(
+    left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool = False
+) -> Artifacts:
+    """``classic_forward_batched`` (or ``classic_forward``) through the
+    kernels' plain versions on any device, [H, W] or [B, H, W]: what the
+    kernel route is held to on the card (the counterpart of
+    ``models.modern.modern_forward_reference``)."""
+    if left.ndim not in (2, 3):
+        raise ValueError(f"need [H, W] or [B, H, W], got {tuple(left.shape)}")
+    return _forward(left, right, params, subpixel, plain=True)
 
 
 class ClassicPipeline(nn.Module):
