@@ -1,0 +1,6 @@
+"""``kernel_ms`` in the online cells, where it moves their own end-to-end
+metric (``metrics/kernel_ms.py`` reads it)."""
+
+from stereobench.metrics.kernel_ms import BETTER, LAYER, SOURCE, UNIT, read  # noqa: F401
+
+MOVES = "online_pairs_per_s"
