@@ -41,6 +41,7 @@ from stereomatching_tpu_torch.ops.fused import (
     match_score_edges_reference)
 from stereomatching_tpu_torch.ops.fused_diffusion import (
     fill_web_holes_range, fill_web_holes_range_reference)
+from stereomatching_tpu_torch.utils import tracing
 
 Artifacts = Dict[str, torch.Tensor]
 
@@ -120,20 +121,32 @@ def _forward(
     left: torch.Tensor, right: torch.Tensor, params: StereoParams, subpixel: bool,
     plain: bool = False,
 ) -> Artifacts:
-    match = _match_fn(params, plain)
-    if params.edge_rule == "exact":
-        best, winner, edges_l, edges_r, *sub = match(left, right, params, subpixel)
-    else:
-        edges_l, edges_r = _edges(left, right, params)
-        best, winner, *sub = match(edges_l, edges_r, params, subpixel)
-    out = {
-        "edges-1": edges_l,
-        "edges-2": edges_r,
-        "score_best": best,
-        "web-1": winner,
-        **(_finish(*fill_web_holes_range_reference(winner, params.times), params) if plain
-           else classic_finish(winner, params, winner_bound(params))),
-    }
+    """The routes' forward, one ``forward`` span with a stage a phase:
+    ``edges`` (reference rule), ``match``, ``diffusion``, ``contour``."""
+    with tracing.span("forward", left):
+        if not plain and tracing.on():
+            for stage in plain_stages(params):
+                tracing.count(f"plain_stage.{stage}")
+        match = _match_fn(params, plain)
+        if params.edge_rule == "exact":
+            tracing.stage("match")
+            best, winner, edges_l, edges_r, *sub = match(left, right, params, subpixel)
+        else:
+            tracing.stage("edges")
+            edges_l, edges_r = _edges(left, right, params)
+            tracing.stage("match")
+            best, winner, *sub = match(edges_l, edges_r, params, subpixel)
+        tracing.stage("diffusion")
+        diffused = (fill_web_holes_range_reference(winner, params.times) if plain
+                    else fill_web_holes_range(winner, params.times, winner_bound(params)))
+        tracing.stage("contour")
+        out = {
+            "edges-1": edges_l,
+            "edges-2": edges_r,
+            "score_best": best,
+            "web-1": winner,
+            **_finish(*diffused, params),
+        }
     if subpixel:
         out["subpixel"] = sub[0]
     return out

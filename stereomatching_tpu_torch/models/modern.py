@@ -45,6 +45,7 @@ from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.ops import (
     costvolume, fused_diffusion, fused_modern, fused_sgm, sgm)
 from stereomatching_tpu_torch.ops.costvolume import DisparityResult
+from stereomatching_tpu_torch.utils import tracing
 
 Outputs = Dict[str, torch.Tensor]
 
@@ -175,6 +176,7 @@ def _maybe_median(disp, sub, dr, params: ModernParams):
     right planes, before LR consistency, when ``median_filter`` is on."""
     if not params.median_filter:
         return disp, sub, dr
+    tracing.stage("median")
     med = costvolume.median3x3
     return med(disp), med(sub), med(dr)
 
@@ -220,8 +222,10 @@ def _coarse_inputs(left, right, params: ModernParams):
 def _finish(disp, sub, dr, cost, params: ModernParams, route: _Route) -> Outputs:
     """The routes' shared tail: median, LR consistency, hole fill."""
     disp, sub, dr = _maybe_median(disp, sub, dr, params)
+    tracing.stage("lr_check")
     valid = costvolume.lr_consistency(disp, dr, params.lr_max_diff,
                                       params.num_disparities)
+    tracing.stage("fill")
     return {
         "disparity": disp,
         "subpixel": sub,
@@ -233,23 +237,28 @@ def _finish(disp, sub, dr, cost, params: ModernParams, route: _Route) -> Outputs
 
 
 def _sgm_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
+    tracing.stage("census")
     codes = _cost_inputs(left, right, params)
+    coarse = _coarse_inputs(left, right, params)
+    tracing.stage("volume")
     args = (*codes, params.num_disparities, params.cost, _sgm_storage_dtype(params))
-    if params.scales == 2:
-        coarse = (*_coarse_inputs(left, right, params), params.coarse_weight)
-        vol = fused_sgm.sgm_volume_reference(*args, coarse)
+    if coarse is not None:
+        vol = fused_sgm.sgm_volume_reference(*args, (*coarse, params.coarse_weight))
     else:
         vol = route.volume(*args)
-    del codes
+    del codes, coarse
+    tracing.stage("aggregation")
     agg = route.aggregate(vol, params.sgm_p1, params.sgm_p2, _sgm_out_dtype(params),
                           params.sgm_directions)
     del vol
+    tracing.stage("tail")
     outs = route.tail(agg, params.uniqueness)
     del agg
     disp, sub, cost, dr = outs[:4]
+    uniqueness = _uniqueness_ratio(outs[4], cost) if params.uniqueness else None
     out = _finish(disp, sub, dr, cost, params, route)
-    if params.uniqueness:
-        out["uniqueness"] = _uniqueness_ratio(outs[4], cost)
+    if uniqueness is not None:
+        out["uniqueness"] = uniqueness
     return out
 
 
@@ -270,8 +279,10 @@ def _box_views(left, right, params: ModernParams, route: _Route, views):
     """DisparityResult of each reference view in ``views``: K7 (or its
     plain version) at ``scales=1``; at ``scales=2`` ``box_disparity``
     with its coarse term, torch ops on every device."""
+    tracing.stage("census")
     codes = _cost_inputs(left, right, params)
     coarse = _coarse_inputs(left, right, params)
+    tracing.stage("disparity")
     return [_one_view(codes, coarse, params, v, route) for v in views]
 
 
@@ -295,9 +306,16 @@ def disparity_one_view(
 
 
 def _forward(left, right, params: ModernParams, route: _Route) -> Outputs:
-    _check_inputs(left, right, params)
-    fwd = _sgm_forward if params.aggregation == "sgm" else _box_forward
-    return fwd(left, right, params, route)
+    """The routes' forward, one ``forward`` span with a stage a phase:
+    SGM ``census``, ``volume``, ``aggregation``, ``tail``, box ``census``,
+    ``disparity``; then ``median`` (when on), ``lr_check``, ``fill``."""
+    with tracing.span("forward", left):
+        if route is not _PLAIN and tracing.on():
+            for stage in plain_stages(params):
+                tracing.count(f"plain_stage.{stage}")
+        _check_inputs(left, right, params)
+        fwd = _sgm_forward if params.aggregation == "sgm" else _box_forward
+        return fwd(left, right, params, route)
 
 
 def _check_inputs(left: torch.Tensor, right: torch.Tensor, params: ModernParams) -> None:
@@ -325,6 +343,7 @@ def check_sad_pixels(left: torch.Tensor, right: torch.Tensor, params: ModernPara
               if x.dtype not in (torch.uint8, torch.bool) and all(x.shape)]
     if not planes:
         return
+    tracing.count("host_sync")
     ext = torch.stack([v.to(torch.int64) for x in planes for v in extrema(x)]).tolist()
     if min(ext) < 0 or max(ext) > 255:
         raise ValueError(f"the box route with SAD takes pixel values 0..255, got "

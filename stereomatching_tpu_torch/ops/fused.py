@@ -33,6 +33,7 @@ from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
 from stereomatching_tpu_torch.ops import argmax
 from stereomatching_tpu_torch.ops.aggregate import box_sum_padded
 from stereomatching_tpu_torch.ops.edges import find_edges
+from stereomatching_tpu_torch.utils import tracing
 
 MAX_SMEM_BYTES = 232448  # the sm_90 per-block opt-in limit
 MAX_SQUARE_WIDTH = 255  # the JAX kernels' limit (fused.py:722)
@@ -51,6 +52,8 @@ _SIGNATURES = {
 # The C entries of each library.
 _ENTRIES = {"match_score_edges": ("match_score_edges", "match_score_edges_smem_bytes"),
             "match_and_score": ("match_and_score", "match_and_score_prehalo")}
+# The tracing counter of each entry ``_launch`` calls.
+_COUNTERS = {"match_score_edges": "launches.K1", "match_and_score": "launches.K8"}
 
 
 def match_score_edges_smem_bytes(half: int, num_shifts: int) -> int:
@@ -161,6 +164,7 @@ def _launch(name: str, left, right, dtype, params: StereoParams, n_int: int,
             for _ in range(n_int)]
     sub = (torch.empty((bsz, h, w), dtype=torch.float32, device=left.device)
            if subpixel else None)
+    tracing.count(_COUNTERS[name])
     with torch.cuda.device(left.device):
         err = getattr(lib, name)(
             left.data_ptr(), right.data_ptr(), *[o.data_ptr() for o in outs],
@@ -322,6 +326,7 @@ def match_and_score_prehalo(
     hs = rows_in - 2 * halo
     best, winner = (torch.empty((b, hs, w), dtype=torch.int32, device=dev) for _ in range(2))
     wrap = params.mode == BoundaryMode.WRAP and not pre_extended
+    tracing.count("launches.K9")
     with torch.cuda.device(dev):
         err = lib.match_and_score_prehalo(
             l_blk.data_ptr(), r_blk.data_ptr(), best.data_ptr(), winner.data_ptr(),

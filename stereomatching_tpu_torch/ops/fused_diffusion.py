@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from stereomatching_tpu_torch.ops import costvolume
 from stereomatching_tpu_torch.ops.diffusion import fill_web_holes
+from stereomatching_tpu_torch.utils import tracing
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
@@ -151,6 +152,7 @@ def _launch(web: torch.Tensor, times: int, value_bound: Optional[int]):
     mn = torch.full((bsz,), INT32_MAX, dtype=torch.int32, device=dev)
     mx = torch.full((bsz,), INT32_MIN, dtype=torch.int32, device=dev)
     lib = _lib("fill_web_holes")
+    tracing.count("launches.K2", plan.launches)
     with torch.cuda.device(dev):
         err = lib.fill_web_holes_range(
             web.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
@@ -253,6 +255,7 @@ def _launch_fill_invalid(disparity: torch.Tensor, valid: torch.Tensor, iteration
     n = plan.launches
     scratch = [torch.empty_like(disparity) if n > 1 else None] + [
         torch.empty_like(valid, dtype=torch.uint8) if n > k else None for k in (1, 2)]
+    tracing.count("launches.K6", n)
     with torch.cuda.device(disparity.device):
         err = _lib("fill_invalid").fill_invalid(
             disparity.data_ptr(), valid.data_ptr(), out.data_ptr(),
@@ -327,6 +330,7 @@ def fill_web_holes_step(prev: torch.Tensor, cur_ext: torch.Tensor, x_off: int) -
         if t.device.type != "cuda" or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("fill_web_holes_step takes contiguous int32 CUDA tensors")
     out = torch.empty_like(prev)
+    tracing.count("launches.K2")
     with torch.cuda.device(prev.device):
         err = _lib("fill_web_holes").fill_web_holes_step(
             prev.data_ptr(), cur_ext.data_ptr(), out.data_ptr(), b, hs, ws, we, x_off,
@@ -386,6 +390,7 @@ def fill_invalid_step(
         raise ValueError("fill_invalid_step takes contiguous float32 / uint8 CUDA blocks")
     d_out = torch.empty((b, hs, ws), dtype=torch.float32, device=d_ext.device)
     v_out = torch.empty((b, hs, ws), dtype=torch.uint8, device=d_ext.device)
+    tracing.count("launches.K6")
     with torch.cuda.device(d_ext.device):
         err = _lib("fill_invalid").fill_invalid_step(
             d_ext.data_ptr(), v_ext.data_ptr(), d_out.data_ptr(), v_out.data_ptr(),

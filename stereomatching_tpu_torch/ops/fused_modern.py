@@ -21,6 +21,7 @@ import torch
 from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.ops.costvolume import DisparityResult, box_disparity
 from stereomatching_tpu_torch.ops.fused_sgm import _device_route
+from stereomatching_tpu_torch.utils import tracing
 
 MAX_WINDOW = 255  # the JAX kernel's window limit
 MAX_DISPARITIES = 256
@@ -102,6 +103,7 @@ def disparity(
         raise ValueError(f"disparity takes at most 65535 images, got {b}")
     outs = [torch.empty((b, h, w), dtype=dt, device=ref.device)
             for dt in (torch.int32, torch.float32, torch.int32)]
+    tracing.count("launches.K7")
     with torch.cuda.device(ref.device):
         err = _lib().disparity(
             ref.data_ptr(), other.data_ptr(), *[o.data_ptr() for o in outs],

@@ -30,6 +30,7 @@ import torch
 
 from stereomatching_tpu_torch.ops import sgm
 from stereomatching_tpu_torch.ops.costvolume import pixel_cost, shifted_view, upsample2
+from stereomatching_tpu_torch.utils import tracing
 
 _VOL_DTYPES = (torch.int8, torch.int16, torch.int32)
 _AGG_DTYPES = (torch.int16, torch.int32)
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "sgm_directional": [_P, _I, _P] + [_I] * 10 + [_P, _P, _P],
     "sgm_tail": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
 }
+# The tracing counter of each entry.
+_COUNTERS = {"sgm_volume": "launches.K3", "sgm_directional": "launches.K4",
+             "sgm_tail": "launches.K5"}
 
 
 @functools.cache
@@ -64,6 +68,7 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     """Call the C entry ``name`` of ``csrc/<name>.cu`` with ``args`` and
     the current stream of ``dev``; raise on a non-zero CUDA error."""
     fn = getattr(_lib(name), name)
+    tracing.count(_COUNTERS[name])
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
