@@ -73,7 +73,9 @@ against the plain route's; box, SGM and the 8-direction stack at
 1110x1390 x 256 disparities, batch 8 (an SGM volume past 2^31
 elements), each image against the plain route; K1, K8 and K9 at D up to
 1952; every kernel's time there beside its bound (a ``{"full_sizes":
-...}`` line).
+...}`` line).  Then phase 37, K10 (the census of both views in one
+launch) at 1110x1390, batch 8 and 1, bitwise its plain version, its time
+beside the plain version's and its bound (a ``{"k10": ...}`` line).
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -1619,7 +1621,7 @@ def full_sizes_phase(dev, smi: str) -> None:
     from stereomatching_tpu_torch.config import BoundaryMode, ModernParams, StereoParams
     from stereomatching_tpu_torch.models import classic, modern
     from stereomatching_tpu_torch.ops import costvolume, fused, fused_diffusion, fused_modern
-    from stereomatching_tpu_torch.ops import fused_sgm
+    from stereomatching_tpu_torch.ops import fused_census, fused_sgm
     from stereomatching_tpu_torch.parallel import Sharded, make_mesh
     from stereomatching_tpu_torch.parallel.mesh import run as run_blocks
     from stereomatching_tpu_torch.parallel.mesh import shard_extent
@@ -1638,7 +1640,8 @@ def full_sizes_phase(dev, smi: str) -> None:
                 "sgm_directional": fused_sgm.sgm_directional,
                 "sgm_tail": fused_sgm.sgm_tail,
                 "fill_invalid": fused_diffusion.fill_invalid,
-                "disparity": fused_modern.disparity}
+                "disparity": fused_modern.disparity,
+                "census": fused_census.census}
 
     def counted(fn):
         """-> (fn(), {wrapper: launches during it}), counted from zero."""
@@ -1761,11 +1764,12 @@ def full_sizes_phase(dev, smi: str) -> None:
         "SGM census 4 paths": (ModernParams(num_disparities=MB_D, aggregation="sgm",
                                             cost="census"),
                                {"sgm_volume": 1, "sgm_directional": 4, "sgm_tail": 1,
-                                "fill_invalid": 1}),
+                                "fill_invalid": 1, "census": 1}),
         "SGM census 8 paths, median, uniqueness": (
             ModernParams(num_disparities=MB_D, aggregation="sgm", cost="census",
                          sgm_directions=8, median_filter=True, uniqueness=True),
-            {"sgm_volume": 1, "sgm_directional": 8, "sgm_tail": 1, "fill_invalid": 1}),
+            {"sgm_volume": 1, "sgm_directional": 8, "sgm_tail": 1, "fill_invalid": 1,
+             "census": 1}),
     }
     truth = []
     for name, (p, want) in routes.items():
@@ -1886,6 +1890,61 @@ def full_sizes_phase(dev, smi: str) -> None:
           flush=True)
 
 
+def census_phase(dev, smi: str) -> dict:
+    """Phase 37: K10, the census of both views in one launch, at the SGM
+    cells' size, 1110 x 1390, batch 8 and batch 1: int32 pixels 0..255
+    (what the benchmark's SGM route sends) and full-range int32 at window
+    5, and int32 pixels at window 3.  Both views' codes bitwise the plain
+    version's on the card, one launch a call; card ms and the plain
+    version's ms a pair beside the bound (``utils/bench.py``
+    ``k10_bound_ms``: 0.0133 ms a pair at window 5).  Prints one line and
+    a ``{"k10": ...}`` line -> the kernel table's row (batch 8, int32
+    pixels, window 5) with ``max_abs_err``, the largest |code - plain
+    code| over every case."""
+    import torch
+
+    from stereomatching_tpu_torch.ops import fused_census
+    from stereomatching_tpu_torch.utils.bench import k10_bound_ms
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    rows, err = [], 0
+    for batch in (MB_BATCH, 1):
+        pix = [torch.randint(0, 256, (batch, MB_H, MB_W), generator=gen, device=dev,
+                             dtype=torch.int32) for _ in range(2)]
+        full = [torch.randint(-2**31, 2**31 - 1, (batch, MB_H, MB_W), generator=gen,
+                              device=dev, dtype=torch.int32) for _ in range(2)]
+        cases = (("int32 pixels", pix, 5), ("int32 full range", full, 5),
+                 ("int32 pixels", pix, 3))
+        for what, (x, y), window in cases:
+            before = fused_census.census.launches
+            got = fused_census.census(x, y, window)
+            torch.cuda.synchronize()
+            check(fused_census.census.launches == before + 1,
+                  f"[37] K10 {what} batch {batch}: {fused_census.census.launches - before} "
+                  f"launches, not 1")
+            want = fused_census.census_reference(x, y, window)
+            for view, g, r in zip(("left", "right"), got, want):
+                err = max(err, max_abs_diff(g, r))
+                check(g.dtype == torch.int32 and same(g, r),
+                      f"[37] K10 {what} batch {batch} window {window}: the {view} codes differ "
+                      f"from the plain version's")
+            del got, want
+            ms = cuda_time_ms(lambda: fused_census.census(x, y, window), 50)
+            plain_ms = cuda_time_ms(lambda: fused_census.census_reference(x, y, window), 5)
+            bound_ms, bound_by = k10_bound_ms(batch * MB_H * MB_W, window)
+            rows.append({"batch": batch, "input": what, "window": window,
+                         "ms_per_pair": ms / batch, "plain_ms_per_pair": plain_ms / batch,
+                         "bound_ms_per_pair": bound_ms / batch, "bound_by": bound_by,
+                         "share_of_bound_pct": 100 * bound_ms / ms, "bitwise": True})
+    print(f"[37 K10] {smi}: census of both views at {MB_H}x{MB_W}, one launch a call, bitwise "
+          "the plain version: " + "; ".join(
+              f"batch {r['batch']} {r['input']} w{r['window']} {r['ms_per_pair']:.5f} ms/pair "
+              f"(plain {r['plain_ms_per_pair']:.4f}, bound {r['bound_ms_per_pair']:.5f}, "
+              f"{r['share_of_bound_pct']:.1f}%)" for r in rows), flush=True)
+    print(json.dumps({"k10": rows, "card": smi}))
+    return {**rows[0], "max_abs_err": err}
+
+
 def timing_line(stdout: str):
     """The reference's timing line of a SIZE x SIZE pair at the end of
     ``stdout`` as a match (elapsed in group 1), or None."""
@@ -1912,7 +1971,7 @@ def main() -> None:
     from stereomatching_tpu_torch.models import classic, modern
     from stereomatching_tpu_torch.models.classic import ClassicPipeline
     from stereomatching_tpu_torch.ops import (
-        costvolume, fused, fused_diffusion, fused_modern, fused_sgm, sgm)
+        costvolume, fused, fused_census, fused_diffusion, fused_modern, fused_sgm, sgm)
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
     from stereomatching_tpu_torch.utils.bench import (
         HBM_BYTES_PER_S, INT32_OPS_PER_S, K2_BENCH_KERNELS, K3_BENCH_KERNELS, K5_BENCH_KERNELS,
@@ -1931,12 +1990,12 @@ def main() -> None:
     print(f"[1 device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # Phase 2: build all eight kernels from the checkout's sources, one nvcc
+    # Phase 2: build all nine kernel sources of the checkout, one nvcc
     # per source, and the host codec (stereo_io.cpp, host C++ compiler), all
     # started together.
     t0 = time.perf_counter()
     sources = ["match_score_edges", "fill_web_holes", "sgm_volume", "sgm_directional",
-               "sgm_tail", "fill_invalid", "disparity", "match_and_score"]
+               "sgm_tail", "fill_invalid", "disparity", "match_and_score", "census"]
     build_all([*sources, "stereo_io"])
     fused._lib("match_score_edges")
     fused._lib("match_and_score")
@@ -1945,6 +2004,7 @@ def main() -> None:
     for name in ("sgm_volume", "sgm_directional", "sgm_tail"):
         fused_sgm._lib(name)
     fused_modern._lib()
+    fused_census._lib()
     codec = native.library_name()
     print(f"[2 build] {', '.join(s + '.cu' for s in sources)} and stereo_io.cpp ({codec}) "
           f"built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2153,13 +2213,15 @@ def main() -> None:
     sgm_wrappers = {"sgm_volume": fused_sgm.sgm_volume,
                     "sgm_directional": fused_sgm.sgm_directional,
                     "sgm_tail": fused_sgm.sgm_tail,
-                    "fill_invalid": fused_diffusion.fill_invalid}
+                    "fill_invalid": fused_diffusion.fill_invalid,
+                    "census": fused_census.census}
     for fn in sgm_wrappers.values():
         fn.launches = 0
     out = mmatcher(left_u8, right_u8)
     launches.update({name: fn.launches for name, fn in sgm_wrappers.items()})
     for name in sgm_wrappers:
         check(launches[name] > 0, f"the SGM path never launched {name}")
+    check(launches["census"] == 1, f"K10 launches {launches['census']} on the SGM slice, not 1")
     check(launches["fill_invalid"] == fused_diffusion.k6_plan(mparams.fill_iterations).launches,
           f"K6 launches {launches['fill_invalid']} on the SGM slice")
     lt = torch.from_numpy(left_u8).to(dev).to(torch.int32)
@@ -2349,7 +2411,7 @@ def main() -> None:
     out, box_counts, truth = drive(bmatcher, bparams, keys, BOX_TRUTH_SHARE,
                                    SHIFTS + bparams.window // 2, "box slice")
     want = {"disparity": 2, "sgm_volume": 0, "sgm_directional": 0, "sgm_tail": 0,
-            "fill_invalid": fused_diffusion.k6_plan(16).launches}
+            "fill_invalid": fused_diffusion.k6_plan(16).launches, "census": 0}
     check(box_counts == want, f"box slice kernel launches {box_counts}, want {want}")
     launches["disparity"] = box_counts["disparity"]
     print(f"[12 box slice] ModernMatcher() = (SAD, window 9, D={SHIFTS}, diffusion fill) on "
@@ -2364,7 +2426,7 @@ def main() -> None:
     out, q_counts, truth = drive(qmatcher, qparams, keys + ["uniqueness"], SGM8_TRUTH_SHARE,
                                  SHIFTS, "8-direction slice")
     want = {"disparity": 0, "sgm_volume": 1, "sgm_directional": 8, "sgm_tail": 1,
-            "fill_invalid": fused_diffusion.k6_plan(16).launches}
+            "fill_invalid": fused_diffusion.k6_plan(16).launches, "census": 1}
     check(q_counts == want, f"8-direction slice kernel launches {q_counts}, want {want}")
     check((out["uniqueness"] >= 1.0).all(), "uniqueness below 1")
     print(f"[13 8-direction slice] ModernMatcher(census, 8 paths, median, uniqueness, "
@@ -2613,7 +2675,7 @@ def main() -> None:
     s2pipe(*pix)
     s2_counts = {name: fn.launches for name, fn in all_wrappers.items()}
     want = {"disparity": 0, "sgm_volume": 0, "sgm_directional": 4, "sgm_tail": 1,
-            "fill_invalid": fused_diffusion.k6_plan(16).launches}
+            "fill_invalid": fused_diffusion.k6_plan(16).launches, "census": 2}
     check(s2_counts == want, f"scales=2 SGM kernel launches {s2_counts}, want {want}")
     s2_ms = cuda_time_ms(lambda: s2pipe(*pix), 3) / BATCH
     s2_plain_ms = cuda_time_ms(lambda: modern.modern_forward_reference(*pix, s2params), 1) / BATCH
@@ -2794,13 +2856,13 @@ def main() -> None:
     for label, p, floor, margin, want in (
         ("SGM", mparams, SGM_TRUTH_SHARE, SHIFTS,
          {"disparity": 0, "sgm_volume": 1, "sgm_directional": 2 + 2 * 4, "sgm_tail": 1,
-          "fill_invalid": 0, "fill_invalid_step": 16}),
+          "fill_invalid": 0, "fill_invalid_step": 16, "census": 0}),
         ("8-direction", qparams, SGM8_TRUTH_SHARE, SHIFTS,
          {"disparity": 0, "sgm_volume": 1, "sgm_directional": 2 + 3 * 2 * 4, "sgm_tail": 1,
-          "fill_invalid": 0, "fill_invalid_step": 16}),
+          "fill_invalid": 0, "fill_invalid_step": 16, "census": 0}),
         ("box", bparams, BOX_TRUTH_SHARE, SHIFTS + bparams.window // 2,
          {"disparity": 2, "sgm_volume": 0, "sgm_directional": 0, "sgm_tail": 0,
-          "fill_invalid": 0, "fill_invalid_step": 16}),
+          "fill_invalid": 0, "fill_invalid_step": 16, "census": 0}),
     ):
         mm = ModernMatcher(p, mesh=card_mesh(1, 4))
         for fn in modern_wrappers.values():
@@ -3133,6 +3195,8 @@ def main() -> None:
     sharded_io_phase(dev, smi)
     # Phase 36: the sizes the JAX package runs.
     full_sizes_phase(dev, smi)
+    # Phase 37: K10 at the SGM cells' size.
+    k10 = census_phase(dev, smi)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [
@@ -3187,6 +3251,16 @@ def main() -> None:
                      "bound_ms_uniqueness": k5u_bound[0], "bound_by_uniqueness": k5u_bound[1]})
     # K3's route at the SGM slice's shapes.
     table[2].update({"route_taken": k3_route_taken})
+    # K10 replaces no Pallas kernel (the JAX census is an XLA phase); its
+    # launches are the SGM slice's (phase 8), its error and times phase
+    # 37's, a batch of 8 at 1110 x 1390.
+    table.append({"name": "census", "route": "cuda", "source": src + "census.cu",
+                  "replaces": None, "launches": launches["census"],
+                  "max_abs_err": k10["max_abs_err"],
+                  "ms": k10["ms_per_pair"] * MB_BATCH,
+                  "plain_ms": k10["plain_ms_per_pair"] * MB_BATCH,
+                  "bound_ms": k10["bound_ms_per_pair"] * MB_BATCH, "bound_by": k10["bound_by"],
+                  "library_ms": None, "shape": [MB_BATCH, MB_H, MB_W]})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,16 +11,18 @@
 
 Both then take the optional 3x3 median, the LR consistency check and the
 hole fill.  Inputs are integer pixel planes 0..255, [H, W] or [B, H, W].
-The box disparity, the SGM volume, paths and tail, and the diffusion fill
-run as ``fused_modern.disparity``, ``sgm_volume`` / ``sgm_directional`` /
+The census transform of both views, the box disparity, the SGM volume,
+paths and tail, and the diffusion fill run as ``fused_census.census``,
+``fused_modern.disparity``, ``sgm_volume`` / ``sgm_directional`` /
 ``sgm_tail`` (``ops/fused_sgm.py``) and ``fill_invalid``
 (``ops/fused_diffusion.py``): the CUDA kernels on CUDA tensors, their
-plain torch versions on CPU tensors.  The census transform, the
-uniqueness ratio, the median, the LR check and the background fill are
-torch ops on every device.  A stage whose kernel does not take the
-config (K7 above window 255 or D 256, K4 above D 256) runs its plain
-version on the CUDA device too, chosen before any launch by
-``modern_kernels_supported``.
+plain torch versions on CPU tensors.  The uniqueness ratio, the median,
+the LR check and the background fill are torch ops on every device.  A
+stage whose kernel does not take the config (K7 above window 255 or D
+256, K4 above D 256) runs its plain version on the CUDA device too,
+chosen before any launch by ``modern_kernels_supported``.  At
+``scales=2`` K10 also takes the census of the 2x2-summed images (int32
+intensities 0..1020).
 
 Multi-scale fusion (``scales=2``) adds ``coarse_weight`` x a cost of
 disparity d // 2 computed on the 2x2-block-summed images, upsampled by
@@ -43,7 +45,7 @@ from torch import nn
 
 from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.ops import (
-    costvolume, fused_diffusion, fused_modern, fused_sgm, sgm)
+    costvolume, fused_census, fused_diffusion, fused_modern, fused_sgm, sgm)
 from stereomatching_tpu_torch.ops.costvolume import DisparityResult
 from stereomatching_tpu_torch.utils import tracing
 
@@ -53,6 +55,7 @@ Outputs = Dict[str, torch.Tensor]
 class _Route(NamedTuple):
     """The kernel-backed stages of the two routes."""
 
+    census: Callable
     disparity: Callable
     volume: Callable
     aggregate: Callable
@@ -61,6 +64,7 @@ class _Route(NamedTuple):
 
 
 _KERNELS = _Route(
+    fused_census.census,
     fused_modern.disparity,
     fused_sgm.sgm_volume,
     fused_sgm.sgm_aggregate_paths,
@@ -68,6 +72,7 @@ _KERNELS = _Route(
     fused_diffusion.fill_invalid,
 )
 _PLAIN = _Route(
+    fused_census.census_reference,
     fused_modern.disparity_reference,
     fused_sgm.sgm_volume_reference,
     lambda vol, p1, p2, out_dtype, directions: sgm.sgm_aggregate(
@@ -78,8 +83,8 @@ _PLAIN = _Route(
 
 
 # The kernel-backed stages each route runs.
-_ROUTE_STAGES = {"box": ("disparity", "fill_invalid"),
-                 "sgm": ("volume", "aggregate", "tail", "fill_invalid")}
+_ROUTE_STAGES = {"box": ("census", "disparity", "fill_invalid"),
+                 "sgm": ("census", "volume", "aggregate", "tail", "fill_invalid")}
 
 
 def modern_kernels_supported(params: ModernParams) -> Dict[str, Tuple[bool, str]]:
@@ -87,10 +92,10 @@ def modern_kernels_supported(params: ModernParams) -> Dict[str, Tuple[bool, str]
     whether its CUDA kernel takes ``params``.  A stage that is not ok runs
     its plain torch version on the CUDA device, and ``why`` names the
     kernel and the reason: K7 (``disparity``) takes window <= 255 and
-    D <= 256, K4 (``aggregate``, ``sgm_directional``) D <= 256; K3, K5
-    and K6 take every config.  Decided from the config alone, before any
-    launch (the counterpart of the JAX package's
-    ``modern_pallas_supported``)."""
+    D <= 256, K4 (``aggregate``, ``sgm_directional``) D <= 256; K3, K5,
+    K6 and K10 (``census``, windows 3 and 5) take every config.  Decided
+    from the config alone, before any launch (the counterpart of the JAX
+    package's ``modern_pallas_supported``)."""
     d, window = params.num_disparities, params.window
     k7 = ""
     if window > fused_modern.MAX_WINDOW:
@@ -100,7 +105,8 @@ def modern_kernels_supported(params: ModernParams) -> Dict[str, Tuple[bool, str]
     k4 = ""
     if d > fused_sgm.MAX_DISPARITIES:
         k4 = f"sgm_directional: num_disparities {d} > {fused_sgm.MAX_DISPARITIES}"
-    why = {"disparity": k7, "volume": "", "aggregate": k4, "tail": "", "fill_invalid": ""}
+    why = {"census": "", "disparity": k7, "volume": "", "aggregate": k4, "tail": "",
+           "fill_invalid": ""}
     return {stage: (not w, w) for stage, w in why.items()}
 
 
@@ -188,14 +194,12 @@ def _fill(sub, valid, params: ModernParams, fill_invalid: Callable):
     return fill_invalid(sub, valid, params.fill_iterations)
 
 
-def _cost_inputs(left, right, params: ModernParams):
+def _cost_inputs(left, right, params: ModernParams, route: _Route):
     """int32 cost inputs of both images: the pixels for SAD, the census
-    codes for census."""
-    codes = [x.to(torch.int32) for x in (left, right)]
+    codes of both (``route.census``) for census."""
     if params.cost == "census":
-        codes = [costvolume.census_transform(x, params.census_window).contiguous()
-                 for x in codes]
-    return codes
+        return list(route.census(left, right, params.census_window))
+    return [x.to(torch.int32) for x in (left, right)]
 
 
 def _downsample2(img: torch.Tensor) -> torch.Tensor:
@@ -210,13 +214,13 @@ def _downsample2(img: torch.Tensor) -> torch.Tensor:
             + img[..., 1::2, 0::2] + img[..., 1::2, 1::2])
 
 
-def _coarse_inputs(left, right, params: ModernParams):
+def _coarse_inputs(left, right, params: ModernParams, route: _Route):
     """The cost inputs of the 2x2-summed images (census codes are taken
     of the summed intensities) at ``scales=2``; None at ``scales=1``."""
     if params.scales != 2:
         return None
     return _cost_inputs(*(_downsample2(x.to(torch.int32)) for x in (left, right)),
-                        params)
+                        params, route)
 
 
 def _finish(disp, sub, dr, cost, params: ModernParams, route: _Route) -> Outputs:
@@ -238,8 +242,8 @@ def _finish(disp, sub, dr, cost, params: ModernParams, route: _Route) -> Outputs
 
 def _sgm_forward(left, right, params: ModernParams, route: _Route) -> Outputs:
     tracing.stage("census")
-    codes = _cost_inputs(left, right, params)
-    coarse = _coarse_inputs(left, right, params)
+    codes = _cost_inputs(left, right, params, route)
+    coarse = _coarse_inputs(left, right, params, route)
     tracing.stage("volume")
     args = (*codes, params.num_disparities, params.cost, _sgm_storage_dtype(params))
     if coarse is not None:
@@ -280,8 +284,8 @@ def _box_views(left, right, params: ModernParams, route: _Route, views):
     plain version) at ``scales=1``; at ``scales=2`` ``box_disparity``
     with its coarse term, torch ops on every device."""
     tracing.stage("census")
-    codes = _cost_inputs(left, right, params)
-    coarse = _coarse_inputs(left, right, params)
+    codes = _cost_inputs(left, right, params, route)
+    coarse = _coarse_inputs(left, right, params, route)
     tracing.stage("disparity")
     return [_one_view(codes, coarse, params, v, route) for v in views]
 

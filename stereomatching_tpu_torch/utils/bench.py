@@ -277,3 +277,24 @@ def k6_bound_ms(npix: int, filled: int) -> tuple[float, str]:
     """K6's least time on the card (``k6_work``).  -> (ms, "operations"
     or "bytes")."""
     return bound(*k6_work(npix, filled))
+
+
+# The int32 instructions per neighbour of K10's census: the compare, the
+# select of its bit and the or into the code.
+K10_NEIGHBOUR_OPS = 3
+
+
+def k10_work(npix: int, window: int = 5) -> tuple[float, float, float]:
+    """K10's work for both views of ``npix`` pixels each at ``window``
+    (3 or 5) -> (bytes, ops, the ops' peak rate): each view's int32 plane
+    in and its int32 codes out; per pixel and view
+    ``K10_NEIGHBOUR_OPS`` for each of the window^2 - 1 neighbours (72 at
+    window 5, the SGM work model's census charge)."""
+    ops = 2 * K10_NEIGHBOUR_OPS * (window * window - 1) * npix
+    return 2 * 8 * npix, ops, INT32_OPS_PER_S
+
+
+def k10_bound_ms(npix: int, window: int = 5) -> tuple[float, str]:
+    """K10's least time on the card (``k10_work``).  -> (ms, "operations"
+    or "bytes")."""
+    return bound(*k10_work(npix, window))

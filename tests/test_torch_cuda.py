@@ -17,7 +17,8 @@ import torch
 from stereomatching_tpu_torch.config import BoundaryMode, StereoParams
 from stereomatching_tpu_torch.config import ModernParams
 from stereomatching_tpu_torch.models import modern
-from stereomatching_tpu_torch.ops import fused, fused_diffusion, fused_modern, fused_sgm, sgm
+from stereomatching_tpu_torch.ops import (
+    costvolume, fused, fused_census, fused_diffusion, fused_modern, fused_sgm, sgm)
 # By the module's own name (pytest puts tests/ on the path): on a GPU host
 # an installed package named ``tests`` can shadow this directory.
 from test_torch_fill import special_disparities
@@ -810,6 +811,156 @@ def test_scales2_kernels_match_plain(cuda_device, kw):
     for k in ref:
         assert got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]), k
         assert torch.equal(got[k].cpu(), cpu[k]), k
+
+
+# ------------------------------------------------------------------ K10
+
+# [B, H, W] for K10: one pixel, planes narrower or shorter than the halo,
+# tile edges (128 columns, 32 rows: widths 127-129 and 256, heights 31-33),
+# widths that are not a multiple of 4 (element stores), batch 1-3.
+K10_SHAPES = [(1, 1, 1), (2, 1, 5), (3, 4, 1), (1, 2, 2), (2, 3, 130), (1, 31, 127),
+              (2, 32, 128), (3, 33, 129), (1, 65, 256), (2, 37, 45), (1, 70, 3), (3, 5, 261)]
+
+
+def k10_planes(shape, dtype, seed):
+    """Two planes: 8-bit pixels, full-range int32 or int16 (widened to
+    int32 first); ties in the second (each value twice along a row)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = {torch.uint8: (0, 256), torch.int32: (-2**31, 2**31),
+              torch.int16: (-2**15, 2**15)}[dtype]
+    a = torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)).to(dtype)
+    b = torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)).to(dtype)
+    b = b.repeat_interleave(2, dim=-1)[..., :shape[-1]].contiguous()
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.int16])
+@pytest.mark.parametrize("window", [3, 5])
+@pytest.mark.parametrize("shape", K10_SHAPES)
+def test_census_kernel_matches_plain(cuda_device, shape, window, dtype):
+    """K10's codes of both views, bitwise the plain version's, in one
+    launch."""
+    a, b = k10_planes(shape, dtype, seed=shape[1] * 1000 + shape[2])
+    before = fused_census.census.launches
+    got = fused_census.census(a.to(cuda_device), b.to(cuda_device), window)
+    torch.cuda.synchronize()
+    assert fused_census.census.launches == before + 1
+    for g, x in zip(got, (a, b)):
+        assert g.dtype == torch.int32 and g.shape == x.shape and g.is_contiguous()
+        assert torch.equal(g.cpu(), costvolume.census_transform(x, window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [3, 5])
+def test_census_kernel_at_the_cells_shape(cuda_device, window):
+    """K10 at 1110 x 1390, batch 8, on int32 pixels and on the same as
+    uint8, against the plain version on the card; [H, W] and 4-D planes
+    take one launch too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    a, b = (torch.randint(0, 256, (8, 1110, 1390), generator=gen, device=cuda_device,
+                          dtype=torch.int32) for _ in range(2))
+    want = fused_census.census_reference(a, b, window)
+    for x, y in ((a, b), (a.to(torch.uint8), b.to(torch.uint8)), (a[3], b[3]),
+                 (a.view(2, 4, 1110, 1390), b.view(2, 4, 1110, 1390))):
+        before = fused_census.census.launches
+        got = fused_census.census(x, y, window)
+        assert fused_census.census.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.shape == x.shape and torch.equal(g, w[3] if x.ndim == 2 else w.view(x.shape))
+
+
+@pytest.mark.cuda
+def test_census_kernel_empty_and_refused(cuda_device):
+    before = fused_census.census.launches
+    for shape in ((0, 5, 7), (2, 0, 7), (2, 5, 0)):
+        x = torch.zeros(shape, dtype=torch.uint8, device=cuda_device)
+        cl, cr = fused_census.census(x, x)
+        assert cl.shape == cr.shape == shape and cl.device == x.device
+    assert fused_census.census.launches == before
+    x = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        fused_census.census(x, x.cpu())
+    with pytest.raises(ValueError):
+        fused_census.census(x, x, 7)
+    with pytest.raises(ValueError):
+        fused_census.census(x.float(), x.float())
+
+
+@pytest.mark.cuda
+def test_census_kernel_is_counted_as_a_torch_op(cuda_device):
+    """K10's device name matches no pattern of ``stereobench/kernels``, so
+    the benchmark counts its time in ``torch_ops_ms``, where the census
+    stood before it."""
+    import json
+    import re
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros((2, 40, 60), dtype=torch.int32, device=cuda_device)
+    fused_census.census(x, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_census.census(x, x)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if "census" in e.name}
+    assert names and all("census_kernel" in n for n in names), names
+    files = Path(__file__).resolve().parents[1].glob("stereobench/kernels/*.json")
+    pats = [re.compile(p) for f in files for p in json.loads(f.read_text())["patterns"]]
+    assert pats and not any(p.search(n) for p in pats for n in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("kw", [dict(aggregation="sgm", num_disparities=64),
+                                dict(aggregation="sgm", num_disparities=11, census_window=3,
+                                     sgm_directions=8, uniqueness=True),
+                                dict(aggregation="box", window=5, num_disparities=11),
+                                dict(aggregation="box", window=9, num_disparities=64,
+                                     census_window=3),
+                                dict(aggregation="sgm", num_disparities=16, scales=2)],
+                         ids=str)
+def test_census_routes_forward_matches_plain(cuda_device, kw, dtype):
+    """The SGM and box routes with census on the card, K10 included, equal
+    the plain route (``_PLAIN``, whose census is the plain one) plane by plane; one K10
+    launch a forward, two at ``scales=2`` (the coarse level's codes)."""
+    params = ModernParams(cost="census", **kw)
+    rng = np.random.default_rng(27)
+    left = rng.integers(0, 256, (2, 45, 77))
+    right = np.roll(left, -3, axis=2)
+    lt, rt = (torch.from_numpy(x).to(dtype).to(cuda_device) for x in (left, right))
+    before = fused_census.census.launches
+    got = modern.modern_forward(lt, rt, params)
+    assert fused_census.census.launches == before + params.scales
+    ref = modern.modern_forward_reference(lt, rt, params)
+    assert fused_census.census.launches == before + params.scales
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_traced_sgm_request_counts_one_k10_launch(cuda_device):
+    """A traced SGM request at the benchmark's config counts its launches:
+    K10 once (both views), K3 once, K4 once a path, K5 once, K6 once."""
+    from stereomatching_tpu_torch.utils import tracing
+
+    params = ModernParams(aggregation="sgm", cost="census", num_disparities=256,
+                          lr_max_diff=1, fill_iterations=16, sgm_p1=8, sgm_p2=96)
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    lt, rt = (torch.randint(0, 256, (1, 111, 400), generator=gen, device=cuda_device,
+                            dtype=torch.int32) for _ in range(2))
+    tracing.enable()
+    try:
+        modern.modern_forward(lt, rt, params)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    (req,) = tracing.records()["requests"]
+    tracing.clear()
+    assert req["counters"] == {"launches.K10": 1, "launches.K3": 1, "launches.K4": 4,
+                               "launches.K5": 1, "launches.K6": 1}
 
 
 @pytest.mark.cuda

@@ -280,7 +280,7 @@ def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
 
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
     for name in ("match_score_edges", "match_and_score", "sgm_volume", "sgm_directional",
-                 "sgm_tail", "fill_invalid", "disparity"):
+                 "sgm_tail", "fill_invalid", "disparity", "census"):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build(name)
     assert not (tmp_path / "build").exists() or not os.listdir(tmp_path / "build")

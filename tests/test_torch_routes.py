@@ -86,8 +86,8 @@ def test_modern_predicate_limits():
     def verdict(**kw):
         return {s: ok for s, (ok, _) in modern.modern_kernels_supported(ModernParams(**kw)).items()}
 
-    every = {"disparity": True, "volume": True, "aggregate": True, "tail": True,
-             "fill_invalid": True}
+    every = {"census": True, "disparity": True, "volume": True, "aggregate": True,
+             "tail": True, "fill_invalid": True}
     assert verdict(window=255, num_disparities=256) == every
     assert verdict(window=257) == {**every, "disparity": False}
     assert verdict(num_disparities=257) == {**every, "disparity": False, "aggregate": False}
