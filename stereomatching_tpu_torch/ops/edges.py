@@ -56,6 +56,14 @@ def _taps(p: torch.Tensor):
     return nb
 
 
+def _const(v: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``v`` as a 0-dim tensor filled on ``device``.  Not a Python scalar,
+    which would turn a CUDA divide into a multiply by the reciprocal; not
+    ``torch.tensor(v, device=...)``, a blocking copy from the host (a host
+    sync on CUDA, each)."""
+    return torch.full((), v, dtype=dtype, device=device)
+
+
 def find_edges_padded(
     p: torch.Tensor, threshold: float, rule: str = "reference"
 ) -> torch.Tensor:
@@ -66,10 +74,7 @@ def find_edges_padded(
         raise ValueError("rule must be 'reference' or 'exact'")
     nb = _taps(p)
 
-    def const(v: float) -> torch.Tensor:
-        return torch.tensor(v, dtype=p.dtype, device=p.device)
-
-    thr, three, two = const(threshold), const(3.0), const(2.0)
+    thr, three, two = (_const(v, p.dtype, p.device) for v in (threshold, 3.0, 2.0))
     edges = torch.zeros(nb(0, 0).shape, dtype=torch.bool, device=p.device)
     for (a0, a1, a2), (b0, b1, b2) in EDGE_OPERATORS:
         avg_a = (nb(*a0) + nb(*a1) + nb(*a2)) / three
@@ -86,8 +91,8 @@ def _find_edges_padded_exact(p: torch.Tensor, threshold: float) -> torch.Tensor:
     1536).  ka+kb < 2^18 is exact in float32 and the single IEEE multiply
     rounds identically on every backend."""
     nb = _taps(torch.round(p * 256.0).to(torch.int32))
-    t32 = torch.tensor(threshold, dtype=torch.float32, device=p.device)
-    cap = torch.tensor(1536.0, dtype=torch.float32, device=p.device)
+    t32 = _const(threshold, torch.float32, p.device)
+    cap = _const(1536.0, torch.float32, p.device)
     edges = torch.zeros(nb(0, 0).shape, dtype=torch.bool, device=p.device)
     for (a0, a1, a2), (b0, b1, b2) in EDGE_OPERATORS:
         ka = nb(*a0) + nb(*a1) + nb(*a2)

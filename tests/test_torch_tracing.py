@@ -336,3 +336,86 @@ def test_spans_on_the_card(card, route, stage, kernel, make, stages):
     for kind, m in misses.items():
         assert len(m) <= 0.05 * len(pairs) and all(x < 200 for _, x in m), (kind, m)
     assert 0 <= idle <= r.window_us - r.busy_us
+
+
+def _c_program(card):
+    """The C reference's default program at ``classic-ref-1mp-b32``'s
+    settings (wrap, the reference edge rule, 30 shifts) on 1024² × 4."""
+    from stereobench import harness
+
+    cell = harness.load_cell("classic-ref-1mp-b32")
+    cell.traffic = {**cell.traffic, "batch": 4, "pool": 3}
+    return cell.route.program(cell.params), harness.make_pool(cell, 2**31 + 13, card)
+
+
+@pytest.mark.cuda
+def test_the_c_programs_route_on_the_card(card):
+    """The C reference's default route on the card: the forward is bitwise
+    its plain version and makes no blocking call (CUDA's sync debug mode
+    raises on one); each request counts one K8 launch and no plain
+    stage; in a closed loop each request's ``edges`` stage holds its ops
+    before K8 and no K8 launch, and its ``match`` stage holds K8, placed
+    on the trace as ``test_spans_on_the_card`` places them."""
+    from stereobench import harness
+    from stereobench.metrics import _spans
+    from stereomatching_tpu_torch.models.classic import classic_forward_reference
+
+    pipe, pool = _c_program(card)
+    got = pipe(*pool[0])
+    want = classic_forward_reference(*pool[0], pipe.params)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(_bits(got[k]), _bits(want[k])), k
+    del got, want
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe(*pool[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        win = harness.drive(pipe, pool, 1, 2.0, card, poll=False)
+    float(win.acc)
+    ops = harness.device_ops(prof.events())
+    recs = tracing.records()
+    roots = _spans.roots(recs)
+    assert len(roots) == win.requests >= 20
+    counters = {q["request"]: q["counters"] for q in recs["requests"]}
+    for c in counters.values():
+        assert c.get("launches.K8") == 1
+        assert not [k for k in c if k.startswith("plain_stage.")], c
+    pats = harness.kernel_patterns()["K8"]
+
+    def is_k8(name):
+        return any(p.search(name) for p in pats)
+
+    reqs = _requests_on_device(ops, harness.CHECKSUM_KERNEL)
+    pairs = _pair_requests(roots, counters, reqs, is_k8, "K8")
+    assert len(pairs) >= 0.95 * len(roots)
+    misses = []  # (request, how far outside, us)
+    for j, g in pairs:
+        root, dev = roots[j], reqs[g]
+        kids = {s["name"]: s for s in recs["spans"] if s["parent"] == root["id"]}
+        assert list(kids) == ["edges", "match", "diffusion", "contour"]
+        if not g or dev["checksum_start"] is None:
+            continue
+        ((k_s, k_e),) = [(s, e) for n, s, e in dev["ops"] if is_k8(n)]
+        before = [e for _, s, e in dev["ops"] if s < k_s]
+        edges, match = kids["edges"], kids["match"]
+        e_end = 1e3 * (edges["device_start_ms"] + edges["device_ms"])
+        m_a, m_d = 1e3 * match["device_start_ms"], 1e3 * match["device_ms"]
+        # Where the stream reached the root's start event, t: after the ops
+        # before and before the request's first op; the edges stage ends at
+        # t + e_end after the ops before K8 and before K8; K8 lies inside
+        # [t + m_a, t + m_a + m_d].
+        lo, hi = max(o[2] for o in reqs[g - 1]["ops"]), dev["ops"][0][1]
+        t_lo = max(lo, max(before) - e_end, k_e - m_a - m_d)
+        t_hi = min(hi, k_s - e_end, k_s - m_a)
+        if t_lo > t_hi + 2.0:
+            misses.append((j, t_lo - t_hi))
+    print(f"C program: {len(pairs)} of {len(roots)} roots paired, {len(misses)} with K8 "
+          f"outside its stage or an edge op outside the edges")
+    # The tolerances of test_spans_on_the_card: the profiler's device
+    # timestamps step against the card's event clock now and then.
+    assert len(misses) <= 0.05 * len(pairs) and all(x < 200 for _, x in misses), misses
