@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stereomatching_tpu_torch``) on one
-NVIDIA GPU: builds the kernels of the eight ``csrc/`` CUDA sources and
+NVIDIA GPU: builds the kernels of the ten ``csrc/`` CUDA sources and
 the host codec (``csrc/stereo_io.cpp``), holds each kernel
 against its plain torch version on the card, drives the classic pipeline through
 ``Matcher`` (exact and reference edge rules) and the CLI, and the modern
@@ -76,6 +76,10 @@ elements), each image against the plain route; K1, K8 and K9 at D up to
 ...}`` line).  Then phase 37, K10 (the census of both views in one
 launch) at 1110x1390, batch 8 and 1, bitwise its plain version, its time
 beside the plain version's and its bound (a ``{"k10": ...}`` line).
+Then phase 38, K11 (the reference rule's edges of both views in one
+launch) at 1024² x 32, 3840x2160 x 1 and 1110x1390 x 8, both modes,
+bitwise its plain version, its time and the torch chain's beside the
+benchmark's least time for the stage (a ``{"k11": ...}`` line).
 Then a JSON line describing each kernel (launches on its slice, error
 against its plain version, times, the card's bound for the same work),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -1945,6 +1949,73 @@ def census_phase(dev, smi: str) -> dict:
     return {**rows[0], "max_abs_err": err}
 
 
+def reference_edges_phase(dev, smi: str) -> dict:
+    """Phase 38: K11, the reference rule's edges of both views in one
+    launch, at the classic cells' sizes: 1024² x 32 (``classic-ref-1mp-b32``),
+    3840x2160 x 1 and 1110x1390 x 8, pixel / 256 float32 brightness, both
+    modes at the C program's threshold.  Both views' maps bitwise the
+    plain version's (the torch chain) on the card, one launch a call; card
+    ms a pair and the chain's beside the benchmark's least time for the
+    stage (``stereobench/routes/classic_ref.py`` ``edges_work``: 0.00501 ms
+    a pair at 1024²) and the chain's launches a call.  Prints one line and
+    a ``{"k11": ...}`` line -> the kernel table's row (1024² x 32, wrap)
+    with ``max_abs_err``, the largest |edge - plain edge| over every
+    case."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereobench import workmodel
+    from stereobench.routes.classic_ref import edges_work
+    from stereomatching_tpu_torch import BoundaryMode, StereoParams
+    from stereomatching_tpu_torch.ops import fused_edges
+
+    thr = StereoParams().threshold
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    rows, err = [], 0
+    for batch, h, w in ((32, SIZE, SIZE), (1, 2160, 3840), (MB_BATCH, MB_H, MB_W)):
+        x, y = ((torch.randint(0, 256, (batch, h, w), generator=gen, device=dev) / 256.0)
+                .to(torch.float32) for _ in range(2))
+        for mode in (BoundaryMode.WRAP, BoundaryMode.GHOST):
+            before = fused_edges.reference_edges.launches
+            got = fused_edges.reference_edges(x, y, thr, mode)
+            torch.cuda.synchronize()
+            check(fused_edges.reference_edges.launches == before + 1,
+                  f"[38] K11 {batch}x{h}x{w} {mode.value}: "
+                  f"{fused_edges.reference_edges.launches - before} launches, not 1")
+            want = fused_edges.reference_edges_reference(x, y, thr, mode)
+            for view, g, r in zip(("left", "right"), got, want):
+                err = max(err, max_abs_diff(g, r))
+                check(g.dtype == torch.int32 and same(g, r),
+                      f"[38] K11 {batch}x{h}x{w} {mode.value}: the {view} edges differ from "
+                      f"the plain version's")
+            del got, want
+            ms = cuda_time_ms(lambda: fused_edges.reference_edges(x, y, thr, mode), 50)
+            plain_ms = cuda_time_ms(
+                lambda: fused_edges.reference_edges_reference(x, y, thr, mode), 5)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fused_edges.reference_edges_reference(x, y, thr, mode)
+                torch.cuda.synchronize()
+            plain_launches = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+            work = edges_work(h * w)
+            bound_ms = 1e3 * workmodel.least_s(work)
+            bound_by = ("bytes" if work[0] / workmodel.HBM_BYTES_PER_S >= work[1] / work[2]
+                        else "operations")
+            rows.append({"shape": [batch, h, w], "mode": mode.value,
+                         "ms_per_pair": ms / batch, "plain_ms_per_pair": plain_ms / batch,
+                         "plain_launches": plain_launches, "launches": 1,
+                         "bound_ms_per_pair": bound_ms, "bound_by": bound_by,
+                         "share_of_bound_pct": 100 * bound_ms * batch / ms, "bitwise": True})
+        del x, y
+    print(f"[38 K11] {smi}: reference-rule edges of both views, one launch a call, bitwise "
+          "the plain version: " + "; ".join(
+              f"{r['shape'][0]}x{r['shape'][1]}x{r['shape'][2]} {r['mode']} "
+              f"{r['ms_per_pair']:.5f} ms/pair (plain {r['plain_ms_per_pair']:.4f} in "
+              f"{r['plain_launches']} launches, bound {r['bound_ms_per_pair']:.5f}, "
+              f"{r['share_of_bound_pct']:.1f}%)" for r in rows), flush=True)
+    print(json.dumps({"k11": rows, "card": smi}))
+    return {**rows[0], "max_abs_err": err}
+
+
 def timing_line(stdout: str):
     """The reference's timing line of a SIZE x SIZE pair at the end of
     ``stdout`` as a match (elapsed in group 1), or None."""
@@ -1971,7 +2042,8 @@ def main() -> None:
     from stereomatching_tpu_torch.models import classic, modern
     from stereomatching_tpu_torch.models.classic import ClassicPipeline
     from stereomatching_tpu_torch.ops import (
-        costvolume, fused, fused_census, fused_diffusion, fused_modern, fused_sgm, sgm)
+        costvolume, fused, fused_census, fused_diffusion, fused_edges, fused_modern, fused_sgm,
+        sgm)
     from stereomatching_tpu_torch.serving import Matcher, ModernMatcher
     from stereomatching_tpu_torch.utils.bench import (
         HBM_BYTES_PER_S, INT32_OPS_PER_S, K2_BENCH_KERNELS, K3_BENCH_KERNELS, K5_BENCH_KERNELS,
@@ -1990,12 +2062,13 @@ def main() -> None:
     print(f"[1 device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # Phase 2: build all nine kernel sources of the checkout, one nvcc
+    # Phase 2: build all ten kernel sources of the checkout, one nvcc
     # per source, and the host codec (stereo_io.cpp, host C++ compiler), all
     # started together.
     t0 = time.perf_counter()
     sources = ["match_score_edges", "fill_web_holes", "sgm_volume", "sgm_directional",
-               "sgm_tail", "fill_invalid", "disparity", "match_and_score", "census"]
+               "sgm_tail", "fill_invalid", "disparity", "match_and_score", "census",
+               "reference_edges"]
     build_all([*sources, "stereo_io"])
     fused._lib("match_score_edges")
     fused._lib("match_and_score")
@@ -2005,6 +2078,7 @@ def main() -> None:
         fused_sgm._lib(name)
     fused_modern._lib()
     fused_census._lib()
+    fused_edges._lib()
     codec = native.library_name()
     print(f"[2 build] {', '.join(s + '.cu' for s in sources)} and stereo_io.cpp ({codec}) "
           f"built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2562,16 +2636,19 @@ def main() -> None:
     rmatcher = Matcher(rparams, device="cuda")
     classic_wrappers = {"match_score_edges": fused.match_score_edges,
                         "match_and_score": fused.match_and_score,
-                        "fill_web_holes_range": fused_diffusion.fill_web_holes_range}
+                        "fill_web_holes_range": fused_diffusion.fill_web_holes_range,
+                        "reference_edges": fused_edges.reference_edges}
     for fn in classic_wrappers.values():
         fn.launches = 0
     arts = rmatcher(left_u8, right_u8)
     ref_counts = {name: fn.launches for name, fn in classic_wrappers.items()}
     want = {"match_score_edges": 0, "match_and_score": 1,
             "fill_web_holes_range": fused_diffusion.k2_plan(
-                rparams.times, classic.winner_bound(rparams)).launches}
+                rparams.times, classic.winner_bound(rparams)).launches,
+            "reference_edges": 1}
     check(ref_counts == want, f"reference-rule slice kernel launches {ref_counts}, want {want}")
     launches["match_and_score"] = ref_counts["match_and_score"]
+    launches["reference_edges"] = ref_counts["reference_edges"]
     plain = {k: v.cpu().numpy() for k, v in plain_artifacts(lt, rt, rparams).items()}
     check(sorted(arts) == sorted(plain), f"artifact keys {sorted(arts)} != {sorted(plain)}")
     for k in plain:
@@ -2822,7 +2899,8 @@ def main() -> None:
         arts = smatcher(left_u8, right_u8)
         counts = {name: fn.launches for name, fn in sharded_wrappers.items()}
         want = {"match_and_score_prehalo": 1, "fill_web_holes_step": p.times - 1,
-                "match_score_edges": 0, "match_and_score": 0, "fill_web_holes_range": 0}
+                "match_score_edges": 0, "match_and_score": 0, "fill_web_holes_range": 0,
+                "reference_edges": 0}
         check(counts == want, f"sharded classic {mode.value} launches {counts}, want {want}")
         single = {k: v.cpu().numpy() for k, v in ClassicPipeline(p)(lt, rt).items()}
         check(sorted(arts) == sorted(single), f"sharded artifact keys {sorted(arts)}")
@@ -3197,6 +3275,8 @@ def main() -> None:
     full_sizes_phase(dev, smi)
     # Phase 37: K10 at the SGM cells' size.
     k10 = census_phase(dev, smi)
+    # Phase 38: K11 at the classic cells' sizes.
+    k11 = reference_edges_phase(dev, smi)
 
     src = "stereomatching_tpu_torch/csrc/"
     rows = [
@@ -3261,6 +3341,16 @@ def main() -> None:
                   "plain_ms": k10["plain_ms_per_pair"] * MB_BATCH,
                   "bound_ms": k10["bound_ms_per_pair"] * MB_BATCH, "bound_by": k10["bound_by"],
                   "library_ms": None, "shape": [MB_BATCH, MB_H, MB_W]})
+    # K11 replaces no Pallas kernel either (the JAX edges are XLA ops);
+    # its launches are the reference-rule slice's (phase 17), its error
+    # and times phase 38's, a batch of 32 at 1024² in wrap mode.
+    table.append({"name": "reference_edges", "route": "cuda",
+                  "source": src + "reference_edges.cu", "replaces": None,
+                  "launches": launches["reference_edges"], "max_abs_err": k11["max_abs_err"],
+                  "ms": k11["ms_per_pair"] * k11["shape"][0],
+                  "plain_ms": k11["plain_ms_per_pair"] * k11["shape"][0],
+                  "bound_ms": k11["bound_ms_per_pair"] * k11["shape"][0],
+                  "bound_by": k11["bound_by"], "library_ms": None, "shape": k11["shape"]})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

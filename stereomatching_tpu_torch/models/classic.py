@@ -4,11 +4,12 @@ edges -> per-shift match + box score + argmax -> diffusion -> contour,
 in both boundary modes, on one pair [H, W] or a batch [B, H, W].
 
 With ``edge_rule="exact"`` the first phases run as ``match_score_edges``
-(K1); with the ``"reference"`` rule the float edges are torch ops and
-the scoring loop runs as ``match_and_score`` (K8).  The diffusion runs
-as ``fill_web_holes_range`` (K2).  Each is the CUDA kernel on CUDA
-tensors and its plain torch version on CPU tensors.  ``subpixel`` adds
-the parabola-refined float32 ``"subpixel"`` artifact on both rules.
+(K1); with the ``"reference"`` rule the float edges of both views run as
+``reference_edges`` (K11) and the scoring loop as ``match_and_score``
+(K8).  The diffusion runs as ``fill_web_holes_range`` (K2).  Each is the
+CUDA kernel on CUDA tensors and its plain torch version on CPU tensors.
+``subpixel`` adds the parabola-refined float32 ``"subpixel"`` artifact
+on both rules.
 
 Which kernel-backed stage runs its plain version on the CUDA device is
 decided from the config alone, before any launch
@@ -41,6 +42,7 @@ from stereomatching_tpu_torch.ops.fused import (
     match_score_edges_reference)
 from stereomatching_tpu_torch.ops.fused_diffusion import (
     fill_web_holes_range, fill_web_holes_range_reference)
+from stereomatching_tpu_torch.ops.fused_edges import reference_edges, reference_edges_reference
 from stereomatching_tpu_torch.utils import tracing
 
 Artifacts = Dict[str, torch.Tensor]
@@ -112,7 +114,14 @@ def _match_fn(params: StereoParams, plain: bool = False) -> Callable:
     return match_and_score if kernel else match_and_score_reference
 
 
-def _edges(left: torch.Tensor, right: torch.Tensor, params: StereoParams):
+def _edges(left: torch.Tensor, right: torch.Tensor, params: StereoParams,
+           plain: bool = False):
+    """Both views' edge maps: on the reference rule K11's wrapper, or its
+    plain version with ``plain``; on the exact rule (the collect
+    pipeline's; the other routes take them from K1) ``find_edges``."""
+    if params.edge_rule == "reference":
+        edges = reference_edges_reference if plain else reference_edges
+        return edges(left, right, params.threshold, params.mode)
     return tuple(find_edges(x, params.threshold, params.mode, params.edge_rule)
                  for x in (left, right))
 
@@ -133,7 +142,7 @@ def _forward(
             best, winner, edges_l, edges_r, *sub = match(left, right, params, subpixel)
         else:
             tracing.stage("edges")
-            edges_l, edges_r = _edges(left, right, params)
+            edges_l, edges_r = _edges(left, right, params, plain)
             tracing.stage("match")
             best, winner, *sub = match(edges_l, edges_r, params, subpixel)
         tracing.stage("diffusion")

@@ -352,10 +352,11 @@ def _c_program(card):
 def test_the_c_programs_route_on_the_card(card):
     """The C reference's default route on the card: the forward is bitwise
     its plain version and makes no blocking call (CUDA's sync debug mode
-    raises on one); each request counts one K8 launch and no plain
-    stage; in a closed loop each request's ``edges`` stage holds its ops
-    before K8 and no K8 launch, and its ``match`` stage holds K8, placed
-    on the trace as ``test_spans_on_the_card`` places them."""
+    raises on one); each request counts one K11 launch (both views'
+    edges), one K8 launch and no plain stage; in a closed loop each
+    request's ``edges`` stage holds its ops before K8 and no K8 launch,
+    and its ``match`` stage holds K8, placed on the trace as
+    ``test_spans_on_the_card`` places them."""
     from stereobench import harness
     from stereobench.metrics import _spans
     from stereomatching_tpu_torch.models.classic import classic_forward_reference
@@ -383,7 +384,7 @@ def test_the_c_programs_route_on_the_card(card):
     assert len(roots) == win.requests >= 20
     counters = {q["request"]: q["counters"] for q in recs["requests"]}
     for c in counters.values():
-        assert c.get("launches.K8") == 1
+        assert c.get("launches.K8") == 1 and c.get("launches.K11") == 1
         assert not [k for k in c if k.startswith("plain_stage.")], c
     pats = harness.kernel_patterns()["K8"]
 
